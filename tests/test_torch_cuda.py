@@ -1,0 +1,90 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the `cuda` marker and skips without a CUDA card
+(the kernels have no CPU mode).  The file imports no JAX, so it runs on a
+machine that has only PyTorch:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+Tolerance: none.  Kernel and plain version do the same separate roundings
+on the same tables, so raw sums must be bit-equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from genomicsbench_palisade_tpu_torch.ops import phmm as P
+from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
+from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as O
+
+DTYPES = [torch.float32, torch.float64]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _cases(seed, n, max_r, max_h):
+    """Half the reads are noisy substrings of their hap, half random (with
+    N); lengths cover partial and whole 8-row stripes."""
+    rng = np.random.default_rng(seed)
+    reads, haps, pairs = [], [], []
+    for k in range(n):
+        hl = int(rng.integers(2, max_h + 1))
+        rl = int(rng.integers(1, min(max_r, hl + 1)))
+        hap = rng.integers(0, 5, hl)
+        if k % 2:
+            s = int(rng.integers(0, hl - rl + 1))
+            bases = hap[s : s + rl].copy()
+        else:
+            bases = rng.integers(0, 5, rl)
+        reads.append({"bases": bases, **{q: rng.integers(0, 127, rl) for q in "qidc"}})
+        haps.append(hap)
+        pairs.append((k, k))
+    return reads, haps, pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_kernel_bit_equal_to_plain(cuda, dtype):
+    reads, haps, pairs = _cases(7, 1000, max_r=64, max_h=128)
+    tb = P.as_device_batch(P.prepare_batch(reads, haps, pairs), cuda)
+    kernel = phmm_cuda.KERNELS[dtype]
+    before = kernel.launches
+    got = P.forward_raw(tb, dtype)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = P.phmm_forward_plain(tb, dtype)
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    assert bool(same.all()), int((~same).sum())
+
+
+@pytest.mark.cuda
+def test_likelihoods_equal_oracle_on_card(cuda):
+    reads, haps, pairs = _cases(8, 24, max_r=40, max_h=60)
+    got = P.phmm_likelihoods(P.prepare_batch(reads, haps, pairs), cuda)
+    want = [O.compute_likelihood(reads[r]["bases"], haps[h], reads[r]["q"], reads[r]["i"],
+                                 reads[r]["d"], reads[r]["c"]) for r, h in pairs]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_wrapper_checks_inputs(cuda):
+    reads, haps, pairs = _cases(9, 4, max_r=10, max_h=20)
+    tb = P.as_device_batch(P.prepare_batch(reads, haps, pairs), cuda)
+    kernel = phmm_cuda.phmm_forward_f32
+    tabs = P.device_tables(torch.float32, cuda)
+    hp = tb["hap"].shape[1]
+    bad = dict(tb, q=tb["q"].to(torch.int32))
+    with pytest.raises(ValueError, match="dtype"):
+        kernel(bad, tabs, P.device_init_y(torch.float32, cuda, hp))
+    with pytest.raises(ValueError, match="shape"):
+        kernel(tb, tabs, P.device_init_y(torch.float32, cuda, hp + 1))
+    with pytest.raises(ValueError, match="dtype"):
+        kernel(tb, P.device_tables(torch.float64, cuda), P.device_init_y(torch.float32, cuda, hp))
+    empty = {k: v[:0] for k, v in tb.items()}
+    assert kernel(empty, tabs, P.device_init_y(torch.float32, cuda, hp)).numel() == 0

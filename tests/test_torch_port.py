@@ -1,0 +1,283 @@
+"""The port's host layers, CLI and package rules (genomicsbench_palisade_tpu_torch),
+on the CPU: parsing, bucketing and batch packing equal the JAX package's;
+the CLI prints the JAX CLI's lines (within 1e-5, the tolerance of
+tests/test_torch_phmm.py) and exactly the port oracle's; the package
+imports no JAX; entry points raise without a GPU unless told the CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from genomicsbench_palisade_tpu.io import bucketing as JB
+from genomicsbench_palisade_tpu.io import phmm_batch as JPB
+from genomicsbench_palisade_tpu.ops import phmm as JP
+from genomicsbench_palisade_tpu_torch import default_device
+from genomicsbench_palisade_tpu_torch.cli import phmm as cli
+from genomicsbench_palisade_tpu_torch.convert import batch_from_numpy, tables_from_numpy
+from genomicsbench_palisade_tpu_torch.io import bucketing as B
+from genomicsbench_palisade_tpu_torch.io import phmm_batch as PB
+from genomicsbench_palisade_tpu_torch.ops import phmm as P
+from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
+from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as O
+from genomicsbench_palisade_tpu_torch.utils import build, profiling
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _q33(arr):
+    return "".join(chr(int(v) + 33) for v in arr)
+
+
+def _write_testfile(path, seed, n_batches=3, max_reads=5, max_haps=4):
+    """A small testfile in the reference benchmark's format; half the reads
+    come from a hap (high likelihood), lowercase and N bases included."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(n_batches):
+            nr, nh = int(rng.integers(1, max_reads + 1)), int(rng.integers(1, max_haps + 1))
+            haps = ["".join("ACGTNacgt"[c] for c in rng.integers(0, 9, int(rng.integers(20, 60))))
+                    for _ in range(nh)]
+            f.write(f"{nr} {nh}\n")
+            for _ in range(nr):
+                rl = int(rng.integers(5, 19))
+                if rng.random() < 0.5:
+                    s = int(rng.integers(0, len(haps[0]) - rl))
+                    bases = haps[0][s : s + rl].upper()
+                else:
+                    bases = "".join("ACGT"[c] for c in rng.integers(0, 4, rl))
+                f.write(f"{bases} {_q33(rng.integers(0, 41, rl))} {_q33(rng.integers(25, 46, rl))} "
+                        f"{_q33(rng.integers(25, 46, rl))} {_q33(np.full(rl, 10))}\n")
+            for h in haps:
+                f.write(h + "\n")
+
+
+def test_parse_testfile_matches_jax(tmp_path):
+    tf = tmp_path / "t.txt"
+    _write_testfile(tf, seed=0, n_batches=4)
+    got, want = PB.parse_testfile(tf), JPB.parse_testfile(tf)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.id == w.id and g.pairs == w.pairs
+        assert len(g.reads) == len(w.reads) and len(g.haps) == len(w.haps)
+        for gr, wr in zip(g.reads, w.reads):
+            for k in ("bases", "q", "i", "d", "c"):
+                np.testing.assert_array_equal(gr[k], wr[k])
+                assert gr[k].dtype == wr[k].dtype
+        for gh, wh in zip(g.haps, w.haps):
+            np.testing.assert_array_equal(gh, wh)
+    with open(tf) as fh:
+        assert [b.pairs for b in PB.parse_testfile(fh)] == [b.pairs for b in got]
+
+
+@pytest.mark.parametrize("edges", [B.DEFAULT_EDGES, (64, 128, 256, 512)])
+def test_group_by_buckets_matches_jax(edges):
+    rng = np.random.default_rng(1)
+    items = [(int(a), int(b)) for a, b in rng.integers(1, 500, (200, 2))]
+    assert B.group_by_buckets(items, lambda t: t, edges) == JB.group_by_buckets(items, lambda t: t, edges)
+    assert B.group_by_buckets(items, lambda t: t[0], edges) == JB.group_by_buckets(
+        items, lambda t: t[0], edges)
+    assert B.bucket_size(65, edges) == JB.bucket_size(65, edges)
+    with pytest.raises(ValueError):
+        B.bucket_size(10**6, edges)
+
+
+@pytest.mark.parametrize("pads", [(None, None), (64, 128)])
+def test_prepare_batch_matches_jax(tmp_path, pads):
+    tf = tmp_path / "t.txt"
+    _write_testfile(tf, seed=2, n_batches=3)
+    reads, haps, pairs = [], [], []
+    for bt in PB.parse_testfile(tf):
+        r0, h0 = len(reads), len(haps)
+        reads += bt.reads
+        haps += bt.haps
+        pairs += [(r0 + r, h0 + h) for r, h in bt.pairs]
+    pairs = pairs[::-1]  # order and repeats must not matter
+    got = P.prepare_batch(reads, haps, pairs, *pads)
+    want = JP.prepare_batch(reads, haps, pairs, *pads, transposed=False)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k].astype(np.int64), want[k].astype(np.int64))
+    assert got["rs_row"].dtype == got["q"].dtype == got["hap"].dtype == np.int8
+    assert got["rslen"].dtype == got["haplen"].dtype == np.int32
+    with pytest.raises(ValueError):
+        P.prepare_batch(reads, haps, pairs, r_pad=4)
+
+
+def test_convert_carries_jax_batch_and_tables():
+    """A JAX prepare_batch dict (int32 quals, *_t planes) carried across
+    gives the same raw results as the port's own batch."""
+    rng = np.random.default_rng(3)
+    reads = [{"bases": rng.integers(0, 5, 12), **{k: rng.integers(0, 127, 12) for k in "qidc"}}
+             for _ in range(6)]
+    haps = [rng.integers(0, 5, 20) for _ in range(3)]
+    pairs = [(r, h) for r in range(6) for h in range(3)]
+    jb = JP.prepare_batch(reads, haps, pairs)
+    tb = batch_from_numpy(jb, "cpu")
+    assert set(tb) == {"rs_row", "q", "i", "d", "c", "hap", "rslen", "haplen"}
+    assert tb["q"].dtype == torch.int8 and tb["rslen"].dtype == torch.int32
+    np.testing.assert_array_equal(tb["q"].numpy().astype(np.int64) & 127, jb["q"] & 127)
+    own = P.phmm_forward_plain(P.prepare_batch(reads, haps, pairs), torch.float32, "cpu")
+    assert torch.equal(P.phmm_forward_plain(tb, torch.float32), own)
+    tabs = tables_from_numpy(P.tables(np.float64), "cpu")
+    assert tabs["m2m"].dtype == torch.float64
+    np.testing.assert_array_equal(tabs["ph2pr"].numpy(), O.get_ctx(np.float64).ph2pr)
+
+
+def _likelihood_lines(out):
+    return [ln for ln in out.splitlines() if ln.startswith("i: ")]
+
+
+def test_cli_matches_jax_cli_and_oracle(tmp_path, capsys, monkeypatch):
+    from genomicsbench_palisade_tpu.cli import phmm as jax_cli
+
+    tf = tmp_path / "t.txt"
+    _write_testfile(tf, seed=4, n_batches=3)
+    assert cli.main(["-f", str(tf), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    monkeypatch.setenv("GENOMICS_TPU_CACHE_DIR", str(tmp_path / "xla"))
+    assert jax_cli.main(["-f", str(tf)]) == 0
+    jout = capsys.readouterr().out
+    got, want = _likelihood_lines(out), _likelihood_lines(jout)
+    assert len(got) == len(want) > 10
+    for g, w in zip(got, want):
+        assert g.split(";")[0] == w.split(";")[0]
+        assert abs(float(g.rsplit(" ", 1)[1]) - float(w.rsplit(" ", 1)[1])) <= 1e-5 + 1e-6
+    assert "PairHMM completed. Kernel runtime:" in out.splitlines()[-1]
+    expected = []
+    for bt in PB.parse_testfile(tf):
+        for i, (r, h) in enumerate(bt.pairs):
+            rd = bt.reads[r]
+            v = O.compute_likelihood(rd["bases"], bt.haps[h], rd["q"], rd["i"], rd["d"], rd["c"])
+            expected.append(f"i: {i}; result_final: {v:f}")
+    assert got == expected
+
+
+def test_run_testcases_keeps_what_each_pass_gave(tmp_path):
+    """`keep` holds, per bucket, the tensors each pass was given and its raw
+    outputs; they equal the plain versions and cover every testcase."""
+    tf = tmp_path / "t.txt"
+    _write_testfile(tf, seed=7, n_batches=2)
+    reads, haps, pairs = [], [], []
+    for bt in PB.parse_testfile(tf):
+        r0, h0 = len(reads), len(haps)
+        reads += bt.reads
+        haps += bt.haps
+        pairs += [(r0 + r, h0 + h) for r, h in bt.pairs]
+    # a read of 30 mismatches at q 60 underflows f32: the f64 pass takes it
+    reads.append({"bases": np.zeros(30, np.int64), **{k: np.full(30, 60) for k in "qidc"}})
+    haps.append(np.ones(40, np.int64))
+    pairs.append((len(reads) - 1, len(haps) - 1))
+    stats, keep = {}, []
+    res = cli.run_testcases(reads, haps, pairs, device="cpu", stats=stats, keep=keep)
+    assert sum(len(k["raw_f32"]) for k in keep) == len(pairs)
+    n_f64 = 0
+    for k in keep:
+        assert set(k["bucket"]) <= set(cli.PHMM_EDGES)
+        assert torch.equal(torch.from_numpy(k["raw_f32"]),
+                           P.phmm_forward_plain(k["batch"], torch.float32))
+        if k["raw_f64"] is not None:
+            n_f64 += len(k["raw_f64"])
+            assert torch.equal(torch.from_numpy(k["raw_f64"]),
+                               P.phmm_forward_plain(k["f64_batch"], torch.float64))
+    assert n_f64 == stats["fallback"] >= 1
+    rd = reads[-1]
+    assert res[-1] == O.compute_likelihood(rd["bases"], haps[-1], rd["q"], rd["i"], rd["d"], rd["c"])
+    assert np.isfinite(res).all()
+
+
+def test_cli_quiet_and_trace_dir(tmp_path, capsys):
+    tf = tmp_path / "t.txt"
+    _write_testfile(tf, seed=5, n_batches=2)
+    assert cli.main(["-f", str(tf), "--device", "cpu", "--quiet",
+                     "--trace-dir", str(tmp_path / "trace")]) == 0
+    out = capsys.readouterr().out
+    assert not _likelihood_lines(out) and "PairHMM completed" in out
+    assert (tmp_path / "trace" / "phmm_kernel.json").stat().st_size > 0
+
+
+def test_import_without_jax():
+    """Every module of the port (and chip_smoke.py) imports with jax
+    blocked, and none of the JAX package's modules gets loaded."""
+    code = r"""
+import importlib, pkgutil, sys
+class BlockJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError("jax is blocked")
+sys.meta_path.insert(0, BlockJax())
+import genomicsbench_palisade_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = [m for m in sys.modules if m == "genomicsbench_palisade_tpu"
+       or m.startswith("genomicsbench_palisade_tpu.") or m.split(".")[0] in ("jax", "jaxlib")]
+assert not bad, bad
+assert "genomicsbench_palisade_tpu_torch.ops.phmm_cuda" in names, names
+print("ok", len(names))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    reads = [{"bases": np.array([0, 1, 2]), **{k: np.full(3, 30) for k in "qidc"}}]
+    batch = P.prepare_batch(reads, [np.array([0, 1, 2, 3])], [(0, 0)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        default_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        P.phmm_forward(batch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        P.phmm_likelihoods(batch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.run_testcases(reads, [np.array([0, 1, 2, 3])], [(0, 0)])
+    tf = tmp_path / "t.txt"
+    _write_testfile(tf, seed=6, n_batches=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-f", str(tf)])
+    # told the CPU, they run
+    assert np.isfinite(P.phmm_likelihoods(batch, "cpu")).all()
+
+
+def test_cuda_wrapper_rejects_cpu_tensors():
+    """The kernel wrapper never falls back: CPU tensors are refused before
+    any build or launch."""
+    reads = [{"bases": np.array([0, 1]), **{k: np.full(2, 30) for k in "qidc"}}]
+    tb = P.as_device_batch(P.prepare_batch(reads, [np.array([0, 1])], [(0, 0)]), "cpu")
+    kern = phmm_cuda.phmm_forward_f32
+    before = kern.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kern(tb, P.device_tables(torch.float32, "cpu"), P.device_init_y(torch.float32, "cpu", 2))
+    assert kern.launches == before
+    assert phmm_cuda.KERNELS[torch.float64].name == "phmm_forward_f64"
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build, "CUDA_HOMES", ())
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(phmm_cuda.SOURCE)
+    assert not (tmp_path / "build").exists()
+    # the library name follows the source and the flags
+    assert build.library_path(phmm_cuda.SOURCE).name.startswith("libphmm_forward-")
+    assert "-fmad=false" in build.NVCC_FLAGS and "--use_fast_math" not in build.NVCC_FLAGS
+
+
+def test_profiling_noop_when_disabled(monkeypatch):
+    monkeypatch.delenv(profiling.ENV_VAR, raising=False)
+    with profiling.roi(), profiling.annotate("x"):
+        y = torch.ones(3) * 2
+    assert float(y.sum()) == 6.0
