@@ -1,29 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's PairHMM path on one GPU and hold its
-kernels to their plain PyTorch versions.
+"""Drive the PyTorch/CUDA port's PairHMM and bsw paths on one GPU and hold
+their kernels to their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (any failure exits non-zero and prints no result):
   1. environment: Python, torch, CUDA, nvcc and the card (nvidia-smi);
-  2. build csrc/phmm_forward.cu with nvcc (timed; ptxas register lines);
-  3. the f32 kernel against the plain version on the card, bit for bit, at
-     bench.py's shapes 8192x(250x302) and 4096x(250x473), with kernel and
-     plain times (CUDA events), GCUPS and the bound;
-  4. the main path: `cli.phmm.run_testcases` over a testfile written from
-     --seed in the shape of the reference benchmark's dataset (550 batches of
-     <=110 reads x <=37 haps), launch counts reset just before and read
-     just after; phase split, end-to-end GCUPS (parse plus the median of
-     three runs), fallback fraction; the run once more under torch.profiler
-     for the device's busy share and time by kind; the CLI's printed lines
-     against the pooled results; then every raw output of the counted run,
-     f32 and f64, bucket by bucket, against the plain version on the same
-     device tensors, the kernels timed on the main path's largest buckets,
-     and 16 seeded testcases against the port's oracle (exactly);
-  5. a `kernels` JSON line, the card's name and power limit, and the last
+  2. build csrc/phmm_forward.cu and csrc/bsw_extend.cu with nvcc, one
+     process per source, started together (timed; ptxas register lines);
+  3. the f32 PairHMM kernel against the plain version on the card, bit for
+     bit, at bench.py's shapes 8192x(250x302) and 4096x(250x473), with
+     kernel and plain times (CUDA events), GCUPS and the bound;
+  4. the PairHMM main path: `cli.phmm.run_testcases` over a testfile written
+     from --seed in the shape of the reference benchmark's dataset (550
+     batches of <=110 reads x <=37 haps), launch counts reset just before
+     and read just after; phase split, end-to-end GCUPS (parse plus the
+     median of three runs), fallback fraction; the run once more under
+     torch.profiler for the device's busy share and time by kind; the CLI's
+     printed lines against the pooled results; then every raw output of the
+     counted run, f32 and f64, bucket by bucket, against the plain version
+     on the same device tensors, the kernels timed on the main path's
+     largest buckets, and 16 seeded testcases against the port's oracle
+     (exactly);
+  5. the bsw kernel against its plain version on the card, bit for bit, at
+     tools/bench_all.py's shape 8192x(128x256) (8% mutations, h0 20-59),
+     with kernel and plain times, GCUPS and the bound;
+  6. the bsw main path at the reference's bsw_large size: 10,606,460 pairs
+     written with the generator of tools/bsw_scale_bench.py (rng seed 9;
+     queries 96-151, targets 192-256), `io.pairs.parse_pairs_soa`, then
+     `cli.bsw.score_pairs_soa` on the card, launch counts reset just before
+     and read just after; phase split, the median of three runs, end-to-end
+     pairs/s and GCUPS (parse plus the median run); the run once more under
+     torch.profiler; a launch-size sweep on the file's first 1,000,000
+     pairs; the CLI's --print-output lines for the file's first pairs
+     against the pooled results; every output of the counted run against
+     the plain version on the same device tensors (consecutive launches of
+     a bucket taken together; tolerance 0: integers), which also counts the
+     band cells for the bound; the kernel timed on the main path's largest
+     launch; 512 seeded pairs against the port's oracle (exactly);
+  7. a `kernels` JSON line, the card's name and power limit, and the last
      line {"ok": true, "device": {...}}.
 Every measurement is printed as it is taken.  Needs one CUDA card; without
-one it exits 1.
+one it exits 1.  The bsw dataset (~3.8 GB) is written under build/ beside
+this script and deleted at the end.
 """
 
 from __future__ import annotations
@@ -33,22 +52,44 @@ import contextlib
 import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
+HERE = Path(__file__).resolve().parent
+DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): f32 and f64 outside
 # the tensor cores count an FMA as two operations; the kernel does none.
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
+# int32: 64 INT32 units per SM (Hopper architecture white paper) x 132 SMs
+# x 1.98 GHz, the boost clock at which the data sheet's 67 TFLOP/s f32 is
+# 128 FP32 units per SM x 2
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_CELL = 12  # 8 multiplies + 4 adds (csrc/phmm_forward.cu)
+# int32 operations per band cell of ksw_extend (csrc/bsw_extend.cu): score
+# 6 (two ambiguity tests, or, equality, two selects), M 3 (test, add,
+# select), H 2 (max, max), running max and argmax 3 (compare, two selects),
+# E 4 and F 4 (subtract, max, subtract, max)
+BSW_OPS_PER_CELL = 22
 SOURCE = "genomicsbench_palisade_tpu_torch/csrc/phmm_forward.cu"
 REPLACES = "genomicsbench_palisade_tpu/ops/phmm_pallas.py:38"
+BSW_SOURCE = "genomicsbench_palisade_tpu_torch/csrc/bsw_extend.cu"
+BSW_REPLACES = "genomicsbench_palisade_tpu/ops/bsw_pallas.py:35"
+BSW_PAIRS = 10_606_460  # the reference's bsw_large (scripts/bsw_large:8)
+BSW_SEED = 9  # tools/bsw_scale_bench.py's generator seed
+BSW_CLI_PAIRS = 4096  # pairs of the file's head run through the CLI
+BSW_ORACLE_PAIRS = 512
+BSW_PLAIN_GROUP = 1 << 18  # pairs per call of the plain version in the whole-run check
+BSW_SWEEP_PAIRS = 1_000_000
+BSW_SWEEP_BATCHES = (4096, 16384, 65536, 262144)
 
 
 def fail(msg: str):
@@ -122,6 +163,52 @@ def synth_testfile(path, rng, n_batches=N_BATCHES, max_reads=110, max_haps=37,
                 f.write(hp + "\n")
 
 
+def write_pairs(path, n_pairs, rng, chunk=8192):
+    """The bsw pair file of tools/bsw_scale_bench.py:write_pairs, byte for
+    byte from the same rng: chunks of pairs that share (ql, tl), queries
+    96-151 copied from their target's head with 8% mutations, targets
+    192-256, h0 1-79; each chunk's records are laid out in one uint8
+    matrix (a 1-digit h0 drops its first column) instead of per record."""
+    with open(path, "wb") as f:
+        done = 0
+        while done < n_pairs:
+            m = min(chunk, n_pairs - done)
+            ql = int(rng.integers(96, 152))
+            tl = int(rng.integers(192, 257))
+            tgt = rng.integers(0, 4, (m, tl), dtype=np.uint8)
+            qry = tgt[:, :ql].copy()
+            mut = rng.random((m, ql)) < 0.08
+            qry[mut] = rng.integers(0, 4, int(mut.sum()), dtype=np.uint8)
+            h0 = rng.integers(1, 80, m)
+            head = np.frombuffer(b" %d %d\n" % (tl, ql), np.uint8)
+            rec = np.empty((m, 2 + len(head) + tl + 1 + ql + 1), np.uint8)
+            rec[:, 0] = 48 + h0 // 10
+            rec[:, 1] = 48 + h0 % 10
+            c = 2 + len(head)
+            rec[:, 2:c] = head
+            rec[:, c : c + tl] = tgt + 48
+            rec[:, c + tl] = 10
+            rec[:, c + tl + 1 : c + tl + 1 + ql] = qry + 48
+            rec[:, -1] = 10
+            keep = np.ones(rec.shape, bool)
+            keep[:, 0] = h0 >= 10
+            f.write(rec[keep].tobytes())
+            done += m
+
+
+def synth_bsw_bench_pairs(rng, b=8192, ql=128, tl=256):
+    """tools/bench_all.py:bench_bsw's batch: queries are the head of their
+    target with 8% mutations, h0 20-59."""
+    pairs = []
+    for _ in range(b):
+        t = rng.integers(0, 4, tl)
+        q = t[:ql].copy()
+        mut = rng.random(ql) < 0.08
+        q[mut] = rng.integers(0, 4, int(mut.sum()))
+        pairs.append((q, t, int(rng.integers(20, 60))))
+    return pairs
+
+
 # ---------------------------------------------------------------- measures
 
 
@@ -141,6 +228,26 @@ def bound(batch_np, itemsize: int, ops_per_s: float, table_elems: int):
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def bound_of(n_pairs: int, n_bases: int, band_cells: int):
+    """Least time (ms) for ksw_extend: the larger of the bytes it must move
+    (each query and target base once, 28 bytes of offsets, lengths and h0
+    and 24 of outputs a pair) over HBM bandwidth and its int32 operations
+    (BSW_OPS_PER_CELL per band cell the data visits) over the int32 rate."""
+    t_bytes = (n_bases + (28 + 24) * n_pairs) / HBM_BYTES_PER_S
+    t_ops = BSW_OPS_PER_CELL * band_cells / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bsw_bound(batch, band_cells: int):
+    n_bases = int(batch["q_len"].sum()) + int(batch["t_len"].sum())
+    return bound_of(batch["h0"].numel(), n_bases, band_cells)
+
+
+def bsw_cells(batch) -> int:
+    """Sum of qlen x tlen: the cells GCUPS counts."""
+    return int((batch["q_len"].long() * batch["t_len"].long()).sum())
+
+
 def time_ms(torch, fn, reps: int):
     """Best of `reps` single calls, CUDA events; returns (ms, last result)."""
     best, out = math.inf, None
@@ -157,10 +264,12 @@ def time_ms(torch, fn, reps: int):
 
 def max_abs_diff(torch, a, b) -> float:
     """Max |a-b|; a NaN or inf where the other has another value is inf."""
-    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    if a.shape != b.shape:
+        return math.inf
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b)) if a.is_floating_point() else a == b
     if bool(same.all()):
         return 0.0
-    d = (a - b).abs()[~same]
+    d = (a.double() - b.double()).abs()[~same]
     return float(d.max()) if bool(torch.isfinite(d).all()) else math.inf
 
 
@@ -185,6 +294,7 @@ def device_profile(torch, fn) -> dict:
         name = e.name
         kind = ("phmm_forward_f32" if "phmm_forward_kernel<float" in name else
                 "phmm_forward_f64" if "phmm_forward_kernel<double" in name else
+                "bsw_extend" if "bsw_extend_kernel" in name else
                 "memcpy_htod" if "HtoD" in name else
                 "memcpy_dtoh" if "DtoH" in name else "other")
         kinds[kind] = kinds.get(kind, 0.0) + (end - start) * 1e-6
@@ -204,74 +314,75 @@ def device_profile(torch, fn) -> dict:
 
 def compare(torch, P, batch_np, dtype, kernel_reps=3, plain_reps=2):
     """Kernel and plain version on the same tensors on the card."""
-    tb = P.as_device_batch(batch_np, "cuda")
+    tb = P.as_device_batch(batch_np, DEVICE)
     P.forward_raw(tb, dtype)  # warm-up: first launch, table upload
     ms, got = time_ms(torch, lambda: P.forward_raw(tb, dtype), kernel_reps)
     plain_ms, want = time_ms(torch, lambda: P.phmm_forward_plain(tb, dtype), plain_reps)
     return ms, plain_ms, max_abs_diff(torch, got, want)
 
 
-# ---------------------------------------------------------------- main
+# ---------------------------------------------------------------- phases
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+class Port:
+    """The port's modules, imported after the CUDA check."""
 
-    import torch
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    try:
+    def __init__(self):
+        from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
         from genomicsbench_palisade_tpu_torch.cli import phmm as cli
+        from genomicsbench_palisade_tpu_torch.convert import bsw_batch_from_numpy
+        from genomicsbench_palisade_tpu_torch.io.pairs import parse_pairs_soa
         from genomicsbench_palisade_tpu_torch.io.phmm_batch import parse_testfile
+        from genomicsbench_palisade_tpu_torch.ops import bsw as W
+        from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
         from genomicsbench_palisade_tpu_torch.ops import phmm as P
         from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
+        from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as bsw_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as oracle
         from genomicsbench_palisade_tpu_torch.utils import build
-    except ImportError as e:
-        fail(f"the port is not importable ({e}); run from the repository root")
-    log(f"seed {args.seed}")
 
-    # 1. environment
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()
-    smi = smi[0].strip() if smi else "nvidia-smi gave nothing"
-    nvcc = build.find_nvcc()
-    nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
-                              timeout=60).stdout.strip().splitlines()
-    env = {"python": sys.version.split()[0], "torch": torch.__version__,
-           "torch_cuda": torch.version.cuda, "nvcc": nvcc_ver[-1] if nvcc_ver else "",
-           "device": torch.cuda.get_device_name(0),
-           "device_count": torch.cuda.device_count(), "nvidia_smi": smi}
-    log("env " + json.dumps(env))
+        vars(self).update(cli=cli, cli_bsw=cli_bsw, bsw_batch_from_numpy=bsw_batch_from_numpy,
+                          parse_pairs_soa=parse_pairs_soa, parse_testfile=parse_testfile, W=W,
+                          bsw_cuda=bsw_cuda, P=P, phmm_cuda=phmm_cuda, bsw_oracle=bsw_oracle,
+                          oracle=oracle, build=build)
+        self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend]
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib_path = build.build(phmm_cuda.SOURCE)
-    build.load(phmm_cuda.SOURCE)
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    log(f"build {lib_path.name}: {build_s:.2f} s")
-    for ln in ptxas:
-        log(f"  ptxas {ln}")
+    def reset_launches(self):
+        for k in self.kernels:
+            k.launches = 0
 
-    kern = {"phmm_forward_f32": {"max_abs_err": 0.0}, "phmm_forward_f64": {"max_abs_err": 0.0}}
+    def launches(self) -> dict:
+        return {k.name: k.launches for k in self.kernels}
 
-    def check(name, err, where):
-        """Tolerance 0: kernel and plain version round the same ops alike."""
-        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
+
+class Record:
+    """Per kernel: the numbers of its `kernels` entry; fails on the first
+    disagreement with its plain version (tolerance 0)."""
+
+    def __init__(self, names):
+        self.kern = {n: {"max_abs_err": 0.0} for n in names}
+
+    def check(self, name, err, where):
+        self.kern[name]["max_abs_err"] = max(self.kern[name]["max_abs_err"], err)
         if err != 0.0:
             fail(f"{name} differs from its plain version at {where}: {err}")
 
+    def launched(self, launches: dict, names):
+        for name in names:
+            n = launches[name]
+            self.kern[name]["launches"] = n
+            if n <= 0:
+                fail(f"{name} was not launched on the main path")
+
+
+def phmm_phases(torch, port: Port, rec: Record, seed: int):
+    """Phases 3 and 4: the PairHMM kernels alone and the PairHMM main path."""
+    P, cli, phmm_cuda, oracle = port.P, port.cli, port.phmm_cuda, port.oracle
     n_tables = sum(P.tables(np.float32)[k].size for k in ("ph2pr", "one_m_ph2pr",
                                                         "ph2pr_div3", "m2m"))
 
     # 3. f32 kernel vs plain version at bench.py's shapes
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     for b, rl, hl, r_pad, h_pad in ((8192, 250, 302, 256, 320), (4096, 250, 473, 256, 512)):
         reads, haps, pairs = synth_bench_cases(rng, b, rl, hl)
         batch_np = P.prepare_batch(reads, haps, pairs, r_pad=r_pad, h_pad=h_pad)
@@ -282,18 +393,18 @@ def main(argv=None) -> int:
                "gcups": cells_of(batch_np) / (ms * 1e-3) / 1e9,
                "bound_ms": bms, "bound_by": by}
         log("f32 kernel vs plain " + json.dumps(row))
-        check("phmm_forward_f32", err, row["shape"])
+        rec.check("phmm_forward_f32", err, row["shape"])
 
     # 4. the main path at the dataset shape
     with tempfile.TemporaryDirectory() as tmp:
         tf = Path(tmp) / "testfile.txt"
         t0 = time.perf_counter()
-        synth_testfile(tf, np.random.default_rng(args.seed))
+        synth_testfile(tf, np.random.default_rng(seed))
         log(f"testfile: {N_BATCHES} batches, {tf.stat().st_size / 1e6:.1f} MB, "
             f"written in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        batches = parse_testfile(tf)
+        batches = port.parse_testfile(tf)
         parse_s = time.perf_counter() - t0
         reads, haps, pairs = [], [], []
         for bt in batches:
@@ -307,17 +418,16 @@ def main(argv=None) -> int:
         # two more runs give the spread of its wall time
         stats: dict = {}
         kept: list = []  # per bucket: the tensors each pass was given, its raw outputs
-        for k in phmm_cuda.KERNELS.values():
-            k.launches = 0
+        port.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        results = cli.run_testcases(reads, haps, pairs, device="cuda", stats=stats, keep=kept)
+        results = cli.run_testcases(reads, haps, pairs, device=DEVICE, stats=stats, keep=kept)
         run_s = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in phmm_cuda.KERNELS.values()}
+        launches = port.launches()
         runs_s = [run_s]
         for _ in range(2):
             t0 = time.perf_counter()
-            again = cli.run_testcases(reads, haps, pairs, device="cuda")
+            again = cli.run_testcases(reads, haps, pairs, device=DEVICE)
             runs_s.append(time.perf_counter() - t0)
             if not np.array_equal(again, results):
                 fail("a second run of the main path gave other results")
@@ -329,15 +439,12 @@ def main(argv=None) -> int:
                "gcups_end_to_end": cells / (parse_s + run_s_median) / 1e9,
                "fallback_frac": stats["fallback"] / len(pairs), "launches": launches}
         log("end to end " + json.dumps(e2e))
-        for name, n in launches.items():
-            kern[name]["launches"] = n
-            if n <= 0:
-                fail(f"{name} was not launched on the main path")
+        rec.launched(launches, ("phmm_forward_f32", "phmm_forward_f64"))
         if not np.all(np.isfinite(results)) or results.shape != (len(pairs),):
             fail("main path gave non-finite likelihoods or a wrong shape")
 
         # where the device time goes: the same run again under torch.profiler
-        prof = device_profile(torch, lambda: cli.run_testcases(reads, haps, pairs, device="cuda"))
+        prof = device_profile(torch, lambda: cli.run_testcases(reads, haps, pairs, device=DEVICE))
         log("profile " + json.dumps(prof))
 
         # the CLI's printed lines for the first batches equal the pooled results
@@ -367,7 +474,7 @@ def main(argv=None) -> int:
     # same device tensors, bucket by bucket
     passes = (("phmm_forward_f32", torch.float32, "batch", "raw_f32"),
               ("phmm_forward_f64", torch.float64, "f64_batch", "raw_f64"))
-    seen = {name: {"buckets": 0, "cases": 0, "plain_s": 0.0} for name in kern}
+    seen = {name: {"buckets": 0, "cases": 0, "plain_s": 0.0} for name, *_ in passes}
     for kb in kept:
         for name, dtype, bkey, rkey in passes:
             if kb[bkey] is None:
@@ -375,7 +482,7 @@ def main(argv=None) -> int:
             plain_ms, want = time_ms(torch, lambda: P.phmm_forward_plain(kb[bkey], dtype), 1)
             kb[rkey + "_plain_ms"] = plain_ms
             got = torch.from_numpy(kb[rkey]).to(want.device)
-            check(name, max_abs_diff(torch, got, want), f"main-path bucket {kb['bucket']}")
+            rec.check(name, max_abs_diff(torch, got, want), f"main-path bucket {kb['bucket']}")
             seen[name]["buckets"] += 1
             seen[name]["cases"] += len(kb[rkey])
             seen[name]["plain_s"] += plain_ms * 1e-3
@@ -386,8 +493,8 @@ def main(argv=None) -> int:
         kb = max((kb for kb in kept if kb[bkey] is not None), key=lambda kb: len(kb[rkey]))
         tb = kb[bkey]
         ms, got = time_ms(torch, lambda: P.forward_raw(tb, dtype), 3)
-        check(name, max_abs_diff(torch, got, torch.from_numpy(kb[rkey]).to(got.device)),
-              f"a rerun on bucket {kb['bucket']}")
+        rec.check(name, max_abs_diff(torch, got, torch.from_numpy(kb[rkey]).to(got.device)),
+                  f"a rerun on bucket {kb['bucket']}")
         tb_np = {k: v.cpu().numpy() for k, v in tb.items()}
         itemsize, peak = (4, F32_OPS_PER_S) if dtype == torch.float32 else (8, F64_OPS_PER_S)
         bms, by = bound(tb_np, itemsize, peak, n_tables)
@@ -395,10 +502,10 @@ def main(argv=None) -> int:
                "ms": ms, "plain_ms": kb[rkey + "_plain_ms"],
                "gcups": cells_of(tb_np) / (ms * 1e-3) / 1e9, "bound_ms": bms, "bound_by": by}
         log(f"{name} on the main path's largest bucket " + json.dumps(row))
-        kern[name].update(ms=ms, plain_ms=row["plain_ms"], bound_ms=bms, bound_by=by)
+        rec.kern[name].update(ms=ms, plain_ms=row["plain_ms"], bound_ms=bms, bound_by=by)
 
     # 16 seeded testcases against the port's oracle, exactly
-    sel = np.random.default_rng(args.seed).choice(len(pairs), min(16, len(pairs)), replace=False)
+    sel = np.random.default_rng(seed).choice(len(pairs), min(16, len(pairs)), replace=False)
     t0 = time.perf_counter()
     bad = []
     for i in sel:
@@ -413,13 +520,228 @@ def main(argv=None) -> int:
     if bad:
         fail(f"results differ from the oracle: {bad}")
 
-    # 5. the kernels line, the card, the last line
+
+def bsw_phases(torch, port: Port, rec: Record, seed: int):
+    """Phases 5 and 6: the bsw kernel alone and the bsw main path."""
+    W, cli_bsw, kernel = port.W, port.cli_bsw, port.bsw_cuda.bsw_extend
+    name = kernel.name
+
+    # 5. kernel vs plain version at tools/bench_all.py's shape
+    pairs = synth_bsw_bench_pairs(np.random.default_rng(1))
+    tb, ptuple = port.bsw_batch_from_numpy(W.prepare_pairs(pairs, q_pad=128, t_pad=256), DEVICE)
+    W.bsw_extend(tb, ptuple)  # warm-up: first launch
+    ms, got = time_ms(torch, lambda: W.bsw_extend(tb, ptuple), 3)
+    st: dict = {}
+    plain_ms, want = time_ms(torch, lambda: W.bsw_extend_plain(tb, ptuple, stats=st), 1)
+    err = max_abs_diff(torch, got, want)
+    bms, by = bsw_bound(tb, st["cells"])
+    row = {"shape": "8192x(128x256)", "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           "gcups": bsw_cells(tb) / (ms * 1e-3) / 1e9, "band_cells": st["cells"],
+           "band_gcups": st["cells"] / (ms * 1e-3) / 1e9, "bound_ms": bms, "bound_by": by}
+    log("bsw kernel vs plain " + json.dumps(row))
+    rec.check(name, err, row["shape"])
+
+    # 6. the main path at the reference's bsw_large size
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        pf = Path(tmp) / "pairs.txt"
+        t0 = time.perf_counter()
+        write_pairs(pf, BSW_PAIRS, np.random.default_rng(BSW_SEED))
+        log(f"pairs file: {BSW_PAIRS} pairs, {pf.stat().st_size / 1e9:.3f} GB, "
+            f"written in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        soa = port.parse_pairs_soa(pf)
+        parse_s = time.perf_counter() - t0
+        n = len(soa["h0"])
+        if n != BSW_PAIRS:
+            fail(f"parsed {n} pairs, wrote {BSW_PAIRS}")
+        cells = int(soa["q_len"].astype(np.int64) @ soa["t_len"].astype(np.int64))
+
+        stats: dict = {}
+        kept: list = []  # per launch: the tensors it was given, its output
+        port.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = cli_bsw.score_pairs_soa(soa, device=DEVICE, stats=stats, keep=kept)
+        run_s = time.perf_counter() - t0
+        launches = port.launches()
+        runs_s = [run_s]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            again = cli_bsw.score_pairs_soa(soa, device=DEVICE)
+            runs_s.append(time.perf_counter() - t0)
+            if any(not np.array_equal(again[k], results[k]) for k in results):
+                fail("a second run of the bsw main path gave other results")
+        run_s_median = float(np.median(runs_s))
+        total_s = parse_s + run_s_median
+        e2e = {"pairs": n, "gcells": cells / 1e9, "file_gb": pf.stat().st_size / 1e9,
+               "parse_s": parse_s, **stats, "run_s_all": runs_s, "run_s_median": run_s_median,
+               "total_s": total_s, "pairs_per_s_end_to_end": n / total_s,
+               "gcups_end_to_end": cells / total_s / 1e9, "launches": launches}
+        log("bsw end to end " + json.dumps(e2e))
+        rec.launched(launches, (name,))
+        for k, v in results.items():
+            if v.shape != (n,) or v.dtype != np.int32:
+                fail(f"bsw main path gave {k} of shape {v.shape}, dtype {v.dtype}")
+        if not (results["score"] >= soa["h0"]).all():  # the best score starts at h0
+            fail("bsw main path gave a score below its pair's h0")
+
+        prof = device_profile(torch, lambda: cli_bsw.score_pairs_soa(soa, device=DEVICE))
+        log("bsw profile " + json.dumps(prof))
+
+        # launch size: the kernel phase of score_pairs_soa on the file's head
+        sub = {k: v if k == "codes" else v[:BSW_SWEEP_PAIRS] for k, v in soa.items()}
+        sweep = {}
+        for dev_batch in BSW_SWEEP_BATCHES:
+            st = {}
+            got = cli_bsw.score_pairs_soa(sub, device=DEVICE, stats=st, dev_batch=dev_batch)
+            if any(not np.array_equal(got[k], results[k][:BSW_SWEEP_PAIRS]) for k in got):
+                fail(f"launches of {dev_batch} pairs gave other results")
+            sweep[dev_batch] = st["kernel_s"]
+        log(f"bsw launch-size sweep, kernel_s on the first {BSW_SWEEP_PAIRS} pairs "
+            f"(the main path uses {cli_bsw.DEV_BATCH}) " + json.dumps(sweep))
+
+        # the CLI's --print-output lines for the file's head equal the pooled results
+        head = Path(tmp) / "pairs_head.txt"
+        with open(pf, "rb") as src, open(head, "wb") as dst:
+            for _ in range(3 * BSW_CLI_PAIRS):
+                dst.write(src.readline())
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_bsw.main(["-pairs", str(head), "--print-output"])
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln and all(tok.lstrip("-").isdigit() for tok in ln.split())]
+        cols = np.stack([results[k][:BSW_CLI_PAIRS] for k in W.OUT_ORDER], axis=1)
+        want = [" ".join(map(str, r)) for r in cols.tolist()]
+        if rc != 0 or lines != want:
+            fail(f"bsw CLI lines differ from the pooled results (rc {rc}, "
+                 f"{len(lines)} vs {len(want)} lines)")
+        log(f"bsw CLI: {len(lines)} --print-output lines equal the pooled results")
+
+    # every output of the counted run against the plain version on the same
+    # device tensors, consecutive launches of a bucket taken together up to
+    # BSW_PLAIN_GROUP pairs; the plain version counts the band cells
+    seen = {"launches": 0, "pairs": 0, "plain_calls": 0, "plain_s": 0.0, "band_cells": 0}
+    groups, size = [], BSW_PLAIN_GROUP
+    for kb in kept:
+        m = kb["out"].shape[1]
+        if size + m > BSW_PLAIN_GROUP or groups[-1][0]["bucket"] != kb["bucket"]:
+            groups.append([])
+            size = 0
+        groups[-1].append(kb)
+        size += m
+    for grp in groups:
+        batch = {k: v if k == "codes" else torch.cat([kb["batch"][k] for kb in grp])
+                 for k, v in grp[0]["batch"].items()}
+        st = {}
+        plain_ms, want = time_ms(torch, lambda: W.bsw_extend_plain(batch, ptuple, stats=st), 1)
+        got = torch.cat([kb["out"] for kb in grp], dim=1)
+        rec.check(name, max_abs_diff(torch, got, want), f"main-path bucket {grp[0]['bucket']}")
+        seen["launches"] += len(grp)
+        seen["pairs"] += got.shape[1]
+        seen["plain_calls"] += 1
+        seen["plain_s"] += plain_ms * 1e-3
+        seen["band_cells"] += st["cells"]
+    if seen["launches"] != len(kept) or seen["pairs"] != n:
+        fail(f"the plain check saw {seen['launches']} launches and {seen['pairs']} pairs")
+    bases = int(soa["q_len"].sum(dtype=np.int64) + soa["t_len"].sum(dtype=np.int64))
+    bound_all_ms, seen["bound_by"] = bound_of(n, bases, seen["band_cells"])
+    seen["bound_s_all_launches"] = bound_all_ms * 1e-3
+    seen["kernel_s_counted_run"] = stats["kernel_s"]
+    log("bsw main path vs plain, every output " + json.dumps(seen))
+
+    # the kernel and the plain version on the main path's largest launch
+    kb = max(kept, key=lambda kb: kb["out"].shape[1])
+    ms, got = time_ms(torch, lambda: W.bsw_extend(kb["batch"], ptuple), 3)
+    rec.check(name, max_abs_diff(torch, got, kb["out"]), f"a rerun on launch {kb['bucket']}")
+    st = {}
+    plain_ms, _ = time_ms(torch, lambda: W.bsw_extend_plain(kb["batch"], ptuple, stats=st), 1)
+    bms, by = bsw_bound(kb["batch"], st["cells"])
+    row = {"shape": f"{kb['out'].shape[1]} pairs, bucket {kb['bucket'][0]}x{kb['bucket'][1]}",
+           "ms": ms, "plain_ms": plain_ms,
+           "gcups": bsw_cells(kb["batch"]) / (ms * 1e-3) / 1e9, "band_cells": st["cells"],
+           "band_gcups": st["cells"] / (ms * 1e-3) / 1e9, "bound_ms": bms, "bound_by": by}
+    log(f"{name} on the main path's largest launch " + json.dumps(row))
+    rec.kern[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+    # seeded pairs against the port's oracle, exactly
+    sel = np.random.default_rng(seed).choice(n, min(BSW_ORACLE_PAIRS, n), replace=False)
+    t0 = time.perf_counter()
+    params = port.bsw_oracle.DEFAULT_PARAMS
+    bad = []
+    for i in sel:
+        q = soa["codes"][soa["q_off"][i] : soa["q_off"][i] + soa["q_len"][i]]
+        t = soa["codes"][soa["t_off"][i] : soa["t_off"][i] + soa["t_len"][i]]
+        want_o = port.bsw_oracle.scalar_banded_swa(q, t, int(soa["h0"][i]), params)
+        got_o = {k: int(results[k][i]) for k in W.OUT_ORDER}
+        if got_o != want_o:
+            bad.append((int(i), got_o, want_o))
+    log(f"bsw oracle sample: {len(sel) - len(bad)}/{len(sel)} exact "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if bad:
+        fail(f"bsw results differ from the oracle: {bad[:8]}")
+
+
+# ---------------------------------------------------------------- main
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    try:
+        port = Port()
+    except ImportError as e:
+        fail(f"the port is not importable ({e}); run from the repository root")
+    log(f"seed {args.seed}")
+
+    # 1. environment
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    smi = smi[0].strip() if smi else "nvidia-smi gave nothing"
+    nvcc = port.build.find_nvcc()
+    nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                              timeout=60).stdout.strip().splitlines()
+    env = {"python": sys.version.split()[0], "torch": torch.__version__,
+           "torch_cuda": torch.version.cuda, "nvcc": nvcc_ver[-1] if nvcc_ver else "",
+           "device": torch.cuda.get_device_name(0),
+           "device_count": torch.cuda.device_count(), "nvidia_smi": smi,
+           "build_dir_free_gb": shutil.disk_usage(HERE).free / 1e9}
+    log("env " + json.dumps(env))
+
+    # 2. build: one nvcc per source, all started together
+    sources = (port.phmm_cuda.SOURCE, port.bsw_cuda.SOURCE)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as ex:
+        lib_paths = list(ex.map(port.build.build, sources))
+    for src in sources:
+        port.build.load(src)
+    log(f"build {', '.join(p.name for p in lib_paths)}: {time.perf_counter() - t0:.2f} s")
+    for lib_path in lib_paths:
+        for ln in lib_path.with_suffix(".log").read_text().splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"  ptxas {lib_path.name}: {ln.strip()}")
+
+    rec = Record(port.launches())
+    phmm_phases(torch, port, rec, args.seed)
+    bsw_phases(torch, port, rec, args.seed)
+
+    # 7. the kernels line, the card, the last line
+    where = {"phmm_forward_f32": (SOURCE, REPLACES), "phmm_forward_f64": (SOURCE, REPLACES),
+             "bsw_extend": (BSW_SOURCE, BSW_REPLACES)}
     kernels = []
-    for name, k in kern.items():
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-                        "launches": k["launches"], "max_abs_err": k["max_abs_err"],
-                        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                        "bound_by": k["bound_by"], "library_ms": None})
+    for name, k in rec.kern.items():
+        kernels.append({"name": name, "route": "cuda", "source": where[name][0],
+                        "replaces": where[name][1], "launches": k["launches"],
+                        "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+                        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

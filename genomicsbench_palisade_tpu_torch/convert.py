@@ -5,12 +5,21 @@ PairHMM's parameters are its probability tables, so these are the port's
 (the port's, or the JAX package's, whose `q/i/d/c` are int32 and which may
 also hold pre-transposed `*_t` planes for the TPU) and `tables_from_numpy`
 takes the numpy lookup tables built by `ops.phmm.tables`.
+
+bsw's are its scoring parameters and the batch: `bsw_batch_from_numpy`
+takes a `prepare_pairs` dict (padded [B, pad] query and target rows) and
+returns the struct-of-arrays tensors `ops.bsw.bsw_extend` takes, with the
+parameters as the kernel's int tuple.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .ops.bsw import _params_tuple
+from .ops.bsw_cuda import BATCH_DTYPES
+from .ops.oracle.bsw import DEFAULT_PARAMS
 
 # the compact batch: int8 codes and quals, int32 lengths
 INT8_KEYS = ("rs_row", "q", "i", "d", "c", "hap")
@@ -36,3 +45,28 @@ def tables_from_numpy(tables_np, device) -> dict:
     """Lookup-table tensors on `device`, in the numpy tables' own dtype."""
     return {k: torch.from_numpy(np.ascontiguousarray(tables_np[k])).to(device)
             for k in TABLE_KEYS}
+
+
+_NP = {torch.int8: np.int8, torch.int32: np.int32, torch.int64: np.int64}
+
+
+def bsw_batch_from_numpy(batch_np, device, params=DEFAULT_PARAMS):
+    """(tensors on `device`, params tuple) from a prepare_pairs dict.
+
+    The padded rows become one flat code buffer, queries first: pair b's
+    query at b*q_pad, its target at B*q_pad + b*t_pad.  `params` is a
+    BswParams (the port's, or any object with the same fields)."""
+    query = np.asarray(batch_np["query"]).astype(np.int8)
+    target = np.asarray(batch_np["target"]).astype(np.int8)
+    (b, q_pad), t_pad = query.shape, target.shape[1]
+    arrays = {
+        "codes": np.concatenate([query.ravel(), target.ravel()]),
+        "q_off": np.arange(b, dtype=np.int64) * q_pad,
+        "q_len": batch_np["qlen"],
+        "t_off": b * q_pad + np.arange(b, dtype=np.int64) * t_pad,
+        "t_len": batch_np["tlen"],
+        "h0": batch_np["h0"],
+    }
+    out = {k: torch.from_numpy(np.ascontiguousarray(np.asarray(arrays[k]), dtype=_NP[dt])).to(device)
+           for k, dt in BATCH_DTYPES.items()}
+    return out, _params_tuple(params)

@@ -1,1 +1,2 @@
-"""Host-side I/O: the phmm test-file parser and length bucketing."""
+"""Host-side I/O: the phmm test-file and bsw pair-file parsers and length
+bucketing."""

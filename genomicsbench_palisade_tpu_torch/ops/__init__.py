@@ -1,2 +1,2 @@
-"""Device operations: the PairHMM forward pass, its kernel wrappers and
-the oracle they are held to."""
+"""Device operations: the PairHMM forward pass and the banded Smith-Waterman
+extension, their kernel wrappers and the oracles they are held to."""

@@ -6,16 +6,23 @@ machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerance: none.  Kernel and plain version do the same separate roundings
-on the same tables, so raw sums must be bit-equal.
+Tolerance: none.  The PairHMM kernel and its plain version do the same
+separate roundings on the same tables, so raw sums must be bit-equal; the
+bsw kernel and its plain version compute in int32, so every output must be
+equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
+from genomicsbench_palisade_tpu_torch.convert import bsw_batch_from_numpy
+from genomicsbench_palisade_tpu_torch.ops import bsw as W
+from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
+from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as WO
 from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as O
 
 DTYPES = [torch.float32, torch.float64]
@@ -88,3 +95,65 @@ def test_wrapper_checks_inputs(cuda):
         kernel(tb, P.device_tables(torch.float64, cuda), P.device_init_y(torch.float32, cuda, hp))
     empty = {k: v[:0] for k, v in tb.items()}
     assert kernel(empty, tabs, P.device_init_y(torch.float32, cuda, hp)).numel() == 0
+
+
+def _bsw_pairs(seed, n, max_q=150, max_t=256):
+    """Related pairs (the query a mutated head of its target), random pairs
+    with ambiguous bases, empty queries or targets, h0 from -20 to 99."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for k in range(n):
+        tl = int(rng.integers(0, max_t + 1))
+        ql = int(rng.integers(0, max_q + 1))
+        if k % 3:
+            base = rng.integers(0, 4, max(tl, ql))
+            t = base[:tl]
+            q = np.where(rng.random(ql) < 0.08, rng.integers(0, 4, ql), base[:ql])
+        else:
+            t = rng.integers(0, 5, tl)
+            q = rng.integers(0, 5, ql)
+        pairs.append((q, t, int(rng.integers(-20, 100))))
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [WO.DEFAULT_PARAMS,
+                                    WO.BswParams(o_del=5, e_del=2, o_ins=5, e_ins=2, match=2,
+                                                 mismatch=3)], ids=["default", "m2x3o5e2"])
+def test_bsw_kernel_equal_to_plain(cuda, params):
+    pairs = _bsw_pairs(10, 3000)
+    tb, ptuple = bsw_batch_from_numpy(W.prepare_pairs(pairs), cuda, params)
+    before = bsw_cuda.bsw_extend.launches
+    got = W.bsw_extend(tb, ptuple)
+    torch.cuda.synchronize()
+    assert bsw_cuda.bsw_extend.launches == before + 1
+    assert torch.equal(got, W.bsw_extend_plain(tb, ptuple))
+
+
+@pytest.mark.cuda
+def test_bsw_results_equal_oracle_on_card(cuda):
+    pairs = _bsw_pairs(11, 200)
+    got = cli_bsw.score_pairs(pairs, device=cuda)
+    for i, (q, t, h0) in enumerate(pairs):
+        want = WO.scalar_banded_swa(q, t, h0)
+        assert {k: int(got[k][i]) for k in W.OUT_ORDER} == want, i
+
+
+@pytest.mark.cuda
+def test_bsw_wrapper_checks_inputs(cuda):
+    tb, ptuple = bsw_batch_from_numpy(W.prepare_pairs(_bsw_pairs(12, 4)), cuda)
+    kernel = bsw_cuda.bsw_extend
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel({k: v.cpu() for k, v in tb.items()}, ptuple)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel(dict(tb, q_off=tb["q_off"].to(torch.int32)), ptuple)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel(dict(tb, codes=tb["codes"].to(torch.int32)), ptuple)
+    with pytest.raises(ValueError, match="shape"):
+        kernel(dict(tb, h0=tb["h0"][:2]), ptuple)
+    with pytest.raises(ValueError, match="params"):
+        kernel(tb, ptuple[:9])
+    assert kernel.launches == before
+    empty = {k: v if k == "codes" else v[:0] for k, v in tb.items()}
+    assert kernel(empty, ptuple).shape == (6, 0)

@@ -16,10 +16,15 @@ from genomicsbench_palisade_tpu.io import bucketing as JB
 from genomicsbench_palisade_tpu.io import phmm_batch as JPB
 from genomicsbench_palisade_tpu.ops import phmm as JP
 from genomicsbench_palisade_tpu_torch import default_device
+from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
 from genomicsbench_palisade_tpu_torch.cli import phmm as cli
-from genomicsbench_palisade_tpu_torch.convert import batch_from_numpy, tables_from_numpy
+from genomicsbench_palisade_tpu_torch.convert import (batch_from_numpy, bsw_batch_from_numpy,
+                                                      tables_from_numpy)
 from genomicsbench_palisade_tpu_torch.io import bucketing as B
+from genomicsbench_palisade_tpu_torch.io import pairs as bsw_pairs
 from genomicsbench_palisade_tpu_torch.io import phmm_batch as PB
+from genomicsbench_palisade_tpu_torch.ops import bsw as W
+from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
 from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as O
@@ -219,6 +224,7 @@ bad = [m for m in sys.modules if m == "genomicsbench_palisade_tpu"
        or m.startswith("genomicsbench_palisade_tpu.") or m.split(".")[0] in ("jax", "jaxlib")]
 assert not bad, bad
 assert "genomicsbench_palisade_tpu_torch.ops.phmm_cuda" in names, names
+assert "genomicsbench_palisade_tpu_torch.ops.bsw_cuda" in names, names
 print("ok", len(names))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -243,8 +249,18 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     _write_testfile(tf, seed=6, n_batches=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["-f", str(tf)])
+    pairs = [(np.array([0, 1, 2], np.int8), np.array([0, 1, 2, 3], np.int8), 10)]
+    pf = tmp_path / "pairs.txt"
+    pf.write_text("10\n0123\n012\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_bsw.score_pairs(pairs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_bsw.score_pairs_soa(bsw_pairs.parse_pairs_soa(pf))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_bsw.main(["-pairs", str(pf)])
     # told the CPU, they run
     assert np.isfinite(P.phmm_likelihoods(batch, "cpu")).all()
+    assert cli_bsw.score_pairs(pairs, device="cpu")["score"].tolist() == [13]
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
@@ -258,6 +274,22 @@ def test_cuda_wrapper_rejects_cpu_tensors():
         kern(tb, P.device_tables(torch.float32, "cpu"), P.device_init_y(torch.float32, "cpu", 2))
     assert kern.launches == before
     assert phmm_cuda.KERNELS[torch.float64].name == "phmm_forward_f64"
+
+
+def test_bsw_cuda_wrapper_rejects_cpu_tensors():
+    """The bsw kernel wrapper never falls back either: CPU tensors are
+    refused before any build or launch, and `ops.bsw.bsw_extend` sends them
+    to the plain version instead."""
+    tb, ptuple = bsw_batch_from_numpy(
+        W.prepare_pairs([(np.array([0, 1]), np.array([0, 1, 2]), 5)]), "cpu")
+    kern = bsw_cuda.bsw_extend
+    before = kern.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kern(tb, ptuple)
+    assert kern.launches == before
+    assert torch.equal(W.bsw_extend(tb, ptuple), W.bsw_extend_plain(tb, ptuple))
+    assert kern.launches == before
+    assert build.library_path(bsw_cuda.SOURCE).name.startswith("libbsw_extend-")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
