@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's PairHMM and bsw paths on one GPU and hold
-their kernels to their plain PyTorch versions.
+"""Drive the PyTorch/CUDA port's PairHMM, bsw and chain paths on one GPU and
+hold their kernels to their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (any failure exits non-zero and prints no result):
   1. environment: Python, torch, CUDA, nvcc and the card (nvidia-smi);
-  2. build csrc/phmm_forward.cu and csrc/bsw_extend.cu with nvcc, one
-     process per source, started together (timed; ptxas register lines);
+  2. build csrc/phmm_forward.cu, csrc/bsw_extend.cu and csrc/chain_dp.cu
+     with nvcc, one process per source, started together (timed; ptxas
+     register and spill lines);
   3. the f32 PairHMM kernel against the plain version on the card, bit for
      bit, at bench.py's shapes 8192x(250x302) and 4096x(250x473), with
      kernel and plain times (CUDA events), GCUPS and the bound;
@@ -38,11 +39,33 @@ Phases (any failure exits non-zero and prints no result):
      a bucket taken together; tolerance 0: integers), which also counts the
      band cells for the bound; the kernel timed on the main path's largest
      launch; 512 seeded pairs against the port's oracle (exactly);
-  7. a `kernels` JSON line, the card's name and power limit, and the last
+  7. the chain kernel against its plain version on the card, bit for bit,
+     on 128 calls of 4096 anchors made by the generator of
+     tools/chain_scale_bench.py (rng seed 0, avg_qspan 10-40), and on the
+     same anchors with query spans 10-29 (--seed) written into y (the
+     generator's y has none, so every score there is 0 and no call reaches
+     the max_skip break); kernel and plain times, anchors/s, the
+     predecessors visited and the bound;
+  8. the chain main path at the reference dataset's size: 1001 calls,
+     12,030,789 anchors, up to 87,271 a call, written with the generator of
+     tools/chain_scale_bench.py (rng seed 5) with query spans 10-29 (--seed)
+     written into y, so that the calls score, mark and break;
+     `io.chain_dump.parse_chain_dump`,
+     then `cli.chain.run_calls` on the card, launch counts reset just before
+     and read just after; phase split, the median of three runs, end-to-end
+     anchors/s (parse plus the median run); the run once more under
+     torch.profiler; the CLI's output file for the dump's first 50 calls
+     against print_return of the pooled results; every output of the
+     counted run against the plain version on the same device tensors
+     (tolerance 0: integers), which also counts the predecessors for the
+     bound; the kernel timed on the main path's launch; the 25 + 6
+     reference goldens through `run_calls` on the card; up to 8 calls of
+     the dump with n <= 1500 against the port's oracle (exactly);
+  9. a `kernels` JSON line, the card's name and power limit, and the last
      line {"ok": true, "device": {...}}.
 Every measurement is printed as it is taken.  Needs one CUDA card; without
-one it exits 1.  The bsw dataset (~3.8 GB) is written under build/ beside
-this script and deleted at the end.
+one it exits 1.  The bsw dataset (~3.8 GB) and the chain dump (~176 MB) are
+written under build/ beside this script and deleted at the end.
 """
 
 from __future__ import annotations
@@ -90,6 +113,23 @@ BSW_ORACLE_PAIRS = 512
 BSW_PLAIN_GROUP = 1 << 18  # pairs per call of the plain version in the whole-run check
 BSW_SWEEP_PAIRS = 1_000_000
 BSW_SWEEP_BATCHES = (4096, 16384, 65536, 262144)
+CHAIN_SOURCE = "genomicsbench_palisade_tpu_torch/csrc/chain_dp.cu"
+CHAIN_REPLACES = "genomicsbench_palisade_tpu/ops/chain_pallas.py:55"
+CHAIN_CALLS = 1001  # the reference's dataset (benchmarks/chain/src/main.cpp:100-101)
+CHAIN_MAX_N = 87_271  # its largest call (tools/chain_scale_bench.py:38)
+CHAIN_SEED = 5  # tools/chain_scale_bench.py's generator seed
+CHAIN_BENCH = (128, 4096)  # calls x anchors of the kernel-alone cell
+CHAIN_CLI_CALLS = 50
+CHAIN_ORACLE_CALLS = 8
+CHAIN_ORACLE_MAX_N = 1500
+CHAIN_SPANS = (10, 30)  # query spans written into y: 10-29, minimap2's k-mer sizes
+# int32 operations of csrc/chain_dp.cu: 5 per visited predecessor (loop test
+# and step, dr, dq, the dr == 0 test) and 16 more per one that passes the
+# skip tests (four tests, |dr - dq| 2, two mins, gap subtract, score add,
+# compare with max_f, three for the update or the skip count and break
+# test, the parent test)
+CHAIN_OPS_PER_VISIT = 5
+CHAIN_OPS_PER_ELIGIBLE = 16
 
 
 def fail(msg: str):
@@ -196,6 +236,43 @@ def write_pairs(path, n_pairs, rng, chunk=8192):
             done += m
 
 
+def synth_call(rng, n):
+    """tools/chain_scale_bench.py:synth_call: x non-decreasing with gaps of
+    1-39 and a rare jump of 5,000-20,000, y within 400 of x (so y holds no
+    query span)."""
+    gaps = rng.integers(1, 40, n)
+    jumps = rng.random(n) < 0.002
+    gaps[jumps] += rng.integers(5_000, 20_000, int(jumps.sum()))
+    x = np.cumsum(gaps.astype(np.int64)) + 10_000
+    y = np.maximum(x + rng.integers(-400, 400, n), 0)
+    return x.astype(np.uint64), y.astype(np.uint64)
+
+
+def with_spans(y, spans_rng):
+    """y with query spans drawn from CHAIN_SPANS in bits 32-39, where
+    minimap2 keeps them (the generator's y has none)."""
+    return y | (spans_rng.integers(*CHAIN_SPANS, len(y)).astype(np.uint64) << np.uint64(32))
+
+
+def write_dump(path, rng, n_calls, spans_rng=None):
+    """The chain dataset of tools/chain_scale_bench.py:write_dump, byte for
+    byte from the same rng when `spans_rng` is None: log-uniform call sizes
+    from 63 anchors, one call of exactly CHAIN_MAX_N.  With `spans_rng` the
+    same anchors get query spans in y.  Returns the number of anchors."""
+    sizes = np.round(10 ** rng.uniform(1.8, np.log10(CHAIN_MAX_N), n_calls)).astype(np.int64)
+    sizes[rng.integers(0, n_calls)] = CHAIN_MAX_N
+    with open(path, "w") as f:
+        for n in sizes:
+            x, y = synth_call(rng, int(n))
+            if spans_rng is not None:
+                y = with_spans(y, spans_rng)
+            aq = float(rng.uniform(10, 40))
+            f.write(f"{n} {aq:.6f} 5000 5000 500 1\n")
+            f.write("\n".join(f"{a} {b}" for a, b in zip(x, y)))
+            f.write("\nEOR\n")
+    return int(sizes.sum())
+
+
 def synth_bsw_bench_pairs(rng, b=8192, ql=128, tl=256):
     """tools/bench_all.py:bench_bsw's batch: queries are the head of their
     target with 8% mutations, h0 20-59."""
@@ -248,6 +325,18 @@ def bsw_cells(batch) -> int:
     return int((batch["q_len"].long() * batch["t_len"].long()).sum())
 
 
+def chain_bound(n_anchors: int, n_calls: int, bw: int, st: dict):
+    """Least time (ms) for the chain DP: the larger of the bytes it must
+    move (16 in and 12 out an anchor; a call's gap table, offset and count)
+    over HBM bandwidth and its int32 operations on these inputs (from the
+    plain version's counts of visited and scoring predecessors) over the
+    int32 rate."""
+    t_bytes = (28 * n_anchors + (4 * (bw + 1) + 12) * n_calls) / HBM_BYTES_PER_S
+    t_ops = (CHAIN_OPS_PER_VISIT * st["predecessors"]
+             + CHAIN_OPS_PER_ELIGIBLE * st["eligible"]) / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def time_ms(torch, fn, reps: int):
     """Best of `reps` single calls, CUDA events; returns (ms, last result)."""
     best, out = math.inf, None
@@ -295,6 +384,7 @@ def device_profile(torch, fn) -> dict:
         kind = ("phmm_forward_f32" if "phmm_forward_kernel<float" in name else
                 "phmm_forward_f64" if "phmm_forward_kernel<double" in name else
                 "bsw_extend" if "bsw_extend_kernel" in name else
+                "chain_dp" if "chain_dp_kernel" in name else
                 "memcpy_htod" if "HtoD" in name else
                 "memcpy_dtoh" if "DtoH" in name else "other")
         kinds[kind] = kinds.get(kind, 0.0) + (end - start) * 1e-6
@@ -329,23 +419,31 @@ class Port:
 
     def __init__(self):
         from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
+        from genomicsbench_palisade_tpu_torch.cli import chain as cli_chain
         from genomicsbench_palisade_tpu_torch.cli import phmm as cli
-        from genomicsbench_palisade_tpu_torch.convert import bsw_batch_from_numpy
+        from genomicsbench_palisade_tpu_torch.convert import (bsw_batch_from_numpy,
+                                                              chain_batch_from_numpy)
+        from genomicsbench_palisade_tpu_torch.io import chain_dump
         from genomicsbench_palisade_tpu_torch.io.pairs import parse_pairs_soa
         from genomicsbench_palisade_tpu_torch.io.phmm_batch import parse_testfile
         from genomicsbench_palisade_tpu_torch.ops import bsw as W
         from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
+        from genomicsbench_palisade_tpu_torch.ops import chain as C
+        from genomicsbench_palisade_tpu_torch.ops import chain_cuda
         from genomicsbench_palisade_tpu_torch.ops import phmm as P
         from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
         from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as bsw_oracle
+        from genomicsbench_palisade_tpu_torch.ops.oracle import chain as chain_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as oracle
         from genomicsbench_palisade_tpu_torch.utils import build
 
         vars(self).update(cli=cli, cli_bsw=cli_bsw, bsw_batch_from_numpy=bsw_batch_from_numpy,
                           parse_pairs_soa=parse_pairs_soa, parse_testfile=parse_testfile, W=W,
                           bsw_cuda=bsw_cuda, P=P, phmm_cuda=phmm_cuda, bsw_oracle=bsw_oracle,
-                          oracle=oracle, build=build)
-        self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend]
+                          oracle=oracle, build=build, cli_chain=cli_chain,
+                          chain_batch_from_numpy=chain_batch_from_numpy, chain_dump=chain_dump,
+                          C=C, chain_cuda=chain_cuda, chain_oracle=chain_oracle)
+        self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend, chain_cuda.chain_dp]
 
     def reset_launches(self):
         for k in self.kernels:
@@ -683,6 +781,189 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
         fail(f"bsw results differ from the oracle: {bad[:8]}")
 
 
+def chain_inputs(make, calls):
+    """`make` (io.chain_dump.ChainCallInput) of the fixtures' calls (json
+    dicts) or of the big goldens' npz arrays (prepare_call's defaults)."""
+    if isinstance(calls, list):
+        return [make(c["n"], c["avg_qspan"], c["max_dist_x"], c["max_dist_y"], c["bw"], c["n_segs"],
+                     np.array([int(v) for v in c["x"]], np.uint64),
+                     np.array([int(v) for v in c["y"]], np.uint64)) for c in calls]
+    return [make(len(calls[f"x{ci}"]), float(calls[f"qspan{ci}"]), 5000, 5000, 500, 1,
+                 calls[f"x{ci}"], calls[f"y{ci}"]) for ci in range(int(calls["n_cases"]))]
+
+
+def chain_phases(torch, port: Port, rec: Record, seed: int):
+    """Phases 7 and 8: the chain kernel alone and the chain main path."""
+    C, cli_chain, kernel = port.C, port.cli_chain, port.chain_cuda.chain_dp
+    name = kernel.name
+
+    # 7. kernel vs plain version, 128 calls of 4096 anchors, as generated and with spans
+    rng = np.random.default_rng(0)
+    n_calls, n = CHAIN_BENCH
+    raw = []
+    for _ in range(n_calls):
+        x, y = synth_call(rng, n)
+        raw.append((x, y, float(rng.uniform(10, 40))))
+    spans_rng = np.random.default_rng(seed)
+    for label, ys in (("as generated", [y for _, y, _ in raw]),
+                      ("spans 10-29", [with_spans(y, spans_rng) for _, y, _ in raw])):
+        preps = [C.prepare_call(x, y, aq) for (x, _, aq), y in zip(raw, ys)]
+        tb, params = port.chain_batch_from_numpy(preps, DEVICE)
+        C.chain_dp(tb, params)  # warm-up: first launch
+        ms, got = time_ms(torch, lambda: C.chain_dp(tb, params), 3)
+        st: dict = {}
+        plain_ms, want = time_ms(torch, lambda: C.chain_dp_plain(tb, params, stats=st), 1)
+        err = max_abs_diff(torch, got, want)
+        bms, by = chain_bound(n_calls * n, n_calls, params[2], st)
+        row = {"shape": f"{n_calls}x{n}", "y": label, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": err, "anchors_per_s": n_calls * n / (ms * 1e-3),
+               "w_need_max": max(p["w_need"] for p in preps), **st,
+               "predecessors_per_s": st["predecessors"] / (ms * 1e-3),
+               "scores_nonzero": int((got[0] != 0).sum()), "bound_ms": bms, "bound_by": by}
+        log("chain kernel vs plain " + json.dumps(row))
+        rec.check(name, err, f"{row['shape']} ({label})")
+
+    # 8. the main path at the reference dataset's size
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        dump = Path(tmp) / "calls.txt"
+        t0 = time.perf_counter()
+        total = write_dump(dump, np.random.default_rng(CHAIN_SEED), CHAIN_CALLS,
+                           spans_rng=np.random.default_rng(seed))
+        log(f"chain dump: {CHAIN_CALLS} calls, {total} anchors, "
+            f"{dump.stat().st_size / 1e6:.1f} MB, written in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        calls = port.chain_dump.parse_chain_dump(dump)
+        parse_s = time.perf_counter() - t0
+        anchors = sum(c.n for c in calls)
+        if len(calls) != CHAIN_CALLS or anchors != total or max(c.n for c in calls) != CHAIN_MAX_N:
+            fail(f"parsed {len(calls)} calls and {anchors} anchors, wrote {CHAIN_CALLS} and {total}")
+
+        stats: dict = {}
+        kept: list = []  # per launch: the tensors it was given, its output
+        port.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = cli_chain.run_calls(calls, device=DEVICE, stats=stats, keep=kept)
+        run_s = time.perf_counter() - t0
+        launches = port.launches()
+        runs_s = [run_s]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            again = cli_chain.run_calls(calls, device=DEVICE)
+            runs_s.append(time.perf_counter() - t0)
+            if any(not np.array_equal(a, b) for ra, rb in zip(again, results) for a, b in zip(ra, rb)):
+                fail("a second run of the chain main path gave other results")
+        run_s_median = float(np.median(runs_s))
+        total_s = parse_s + run_s_median
+        scored = sum(int(np.count_nonzero(sc)) for sc, _, _ in results)
+        with_parent = sum(int(np.count_nonzero(par >= 0)) for _, par, _ in results)
+        e2e = {"calls": len(calls), "anchors": anchors, "file_mb": dump.stat().st_size / 1e6,
+               "parse_s": parse_s, **stats, "run_s_all": runs_s, "run_s_median": run_s_median,
+               "total_s": total_s, "anchors_per_s_end_to_end": anchors / total_s,
+               "scores_nonzero_share": scored / anchors, "parents_share": with_parent / anchors,
+               "launches": launches}
+        log("chain end to end " + json.dumps(e2e))
+        rec.launched(launches, (name,))
+        for c, (sc, par, pk) in zip(calls, results):
+            if (sc.shape != (c.n,) or par.shape != (c.n,) or pk.shape != (c.n,)
+                    or sc.dtype != np.int32 or par.dtype != np.int64):
+                fail(f"chain main path gave shapes {sc.shape}, {par.shape}, {pk.shape} for n {c.n}")
+            if not (np.all((par >= -1) & (par < np.arange(c.n))) and np.all(pk >= sc)):
+                fail("chain main path gave a parent at or after its anchor, or a peak below its score")
+
+        prof = device_profile(torch, lambda: cli_chain.run_calls(calls, device=DEVICE))
+        log("chain profile " + json.dumps(prof))
+
+        # the CLI's output file for the dump's first calls equals print_return
+        # of the pooled results
+        head, out_file = Path(tmp) / "calls_head.txt", Path(tmp) / "out.txt"
+        with open(dump) as src, open(head, "w") as dst:
+            records = 0
+            while records < CHAIN_CLI_CALLS:
+                line = src.readline()
+                dst.write(line)
+                records += line == "EOR\n"
+        with contextlib.redirect_stderr(io.StringIO()) as err_buf:
+            rc = cli_chain.main(["-i", str(head), "-o", str(out_file)])
+        want_buf = io.StringIO()
+        for sc, par, _ in results[:CHAIN_CLI_CALLS]:
+            port.chain_dump.print_return(want_buf, sc, par)
+        if rc != 0 or out_file.read_text() != want_buf.getvalue():
+            fail(f"chain CLI output differs from the pooled results (rc {rc})")
+        log(f"chain CLI: the output file of {CHAIN_CLI_CALLS} calls equals print_return of the "
+            f"pooled results ({out_file.stat().st_size} bytes; {err_buf.getvalue().strip()})")
+
+    # every output of the counted run against the plain version on the same
+    # device tensors; the plain version counts the predecessors
+    seen = {"launches": 0, "anchors": 0, "plain_s": 0.0}
+    for kb in kept:
+        st = {}
+        plain_ms, want = time_ms(torch, lambda: C.chain_dp_plain(kb["batch"], kb["params"],
+                                                                 stats=st), 1)
+        rec.check(name, max_abs_diff(torch, kb["out"], want), f"main-path launch {kb['params']}")
+        kb.update(plain_ms=plain_ms, stats=st)
+        seen["launches"] += 1
+        seen["anchors"] += kb["out"].shape[1]
+        seen["plain_s"] += plain_ms * 1e-3
+        for k, v in st.items():
+            seen[k] = max(seen.get(k, 0), v) if k == "predecessors_max_call" else seen.get(k, 0) + v
+    if seen["launches"] != len(kept) or seen["anchors"] != anchors:
+        fail(f"the plain check saw {seen['launches']} launches and {seen['anchors']} anchors")
+    log("chain main path vs plain, every output " + json.dumps(seen))
+    if not (e2e["scores_nonzero_share"] > 0 and e2e["parents_share"] > 0 and seen["breaks"] > 0):
+        fail("the chain main path's calls did not score, chain and break: the check would "
+             "hold nothing")
+
+    # the kernel on the main path's largest launch
+    kb = max(kept, key=lambda kb: kb["out"].shape[1])
+    ms, got = time_ms(torch, lambda: C.chain_dp(kb["batch"], kb["params"]), 3)
+    rec.check(name, max_abs_diff(torch, got, kb["out"]), "a rerun of the main path's launch")
+    n_launch = kb["out"].shape[1]
+    bms, by = chain_bound(n_launch, kb["batch"]["n"].numel(), kb["params"][2], kb["stats"])
+    row = {"shape": f"{kb['batch']['n'].numel()} calls, {n_launch} anchors", "ms": ms,
+           "plain_ms": kb["plain_ms"], "anchors_per_s": n_launch / (ms * 1e-3), **kb["stats"],
+           "predecessors_per_s": kb["stats"]["predecessors"] / (ms * 1e-3),
+           "bound_ms": bms, "bound_by": by}
+    log(f"{name} on the main path's launch " + json.dumps(row))
+    rec.kern[name].update(ms=ms, plain_ms=kb["plain_ms"], bound_ms=bms, bound_by=by)
+
+    # the reference goldens through run_calls on the card, scores and parents exactly
+    fixtures = HERE / "tests" / "fixtures"
+    for label, src in (("chain_golden.json", json.loads((fixtures / "chain_golden.json").read_text())),
+                       ("chain_big_golden.npz", np.load(fixtures / "chain_big_golden.npz"))):
+        gcalls = chain_inputs(port.chain_dump.ChainCallInput, src)
+        t0 = time.perf_counter()
+        got = cli_chain.run_calls(gcalls, device=DEVICE)
+        if isinstance(src, list):
+            want = [(c["scores"], c["parents"]) for c in src]
+        else:
+            want = [(src[f"scores{ci}"], src[f"parents{ci}"]) for ci in range(len(gcalls))]
+        good = sum(np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+                   for g, w in zip(got, want))
+        log(f"chain goldens {label}: {good}/{len(want)} exact, up to "
+            f"{max(c.n for c in gcalls)} anchors ({time.perf_counter() - t0:.1f} s)")
+        if good != len(want):
+            fail(f"chain goldens {label}: {good}/{len(want)}")
+
+    # calls of the dump against the port's oracle, exactly
+    t0 = time.perf_counter()
+    sel = [i for i, c in enumerate(calls) if 0 < c.n <= CHAIN_ORACLE_MAX_N][:CHAIN_ORACLE_CALLS]
+    bad = []
+    for i in sel:
+        c = calls[i]
+        want = port.chain_oracle.chain_dp(port.chain_oracle.ChainCall(
+            c.n, c.avg_qspan, c.max_dist_x, c.max_dist_y, c.bw, c.n_segs, c.x, c.y))
+        if not all(np.array_equal(results[i][r], want[k])
+                   for r, k in enumerate(("scores", "parents", "peak_scores"))):
+            bad.append(i)
+    log(f"chain oracle sample: {len(sel) - len(bad)}/{len(sel)} calls exact "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if bad or not sel:
+        fail(f"chain results differ from the oracle in calls {bad}")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -717,7 +998,7 @@ def main(argv=None) -> int:
     log("env " + json.dumps(env))
 
     # 2. build: one nvcc per source, all started together
-    sources = (port.phmm_cuda.SOURCE, port.bsw_cuda.SOURCE)
+    sources = (port.phmm_cuda.SOURCE, port.bsw_cuda.SOURCE, port.chain_cuda.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as ex:
         lib_paths = list(ex.map(port.build.build, sources))
@@ -732,10 +1013,11 @@ def main(argv=None) -> int:
     rec = Record(port.launches())
     phmm_phases(torch, port, rec, args.seed)
     bsw_phases(torch, port, rec, args.seed)
+    chain_phases(torch, port, rec, args.seed)
 
-    # 7. the kernels line, the card, the last line
+    # 9. the kernels line, the card, the last line
     where = {"phmm_forward_f32": (SOURCE, REPLACES), "phmm_forward_f64": (SOURCE, REPLACES),
-             "bsw_extend": (BSW_SOURCE, BSW_REPLACES)}
+             "bsw_extend": (BSW_SOURCE, BSW_REPLACES), "chain_dp": (CHAIN_SOURCE, CHAIN_REPLACES)}
     kernels = []
     for name, k in rec.kern.items():
         kernels.append({"name": name, "route": "cuda", "source": where[name][0],

@@ -10,6 +10,11 @@ bsw's are its scoring parameters and the batch: `bsw_batch_from_numpy`
 takes a `prepare_pairs` dict (padded [B, pad] query and target rows) and
 returns the struct-of-arrays tensors `ops.bsw.bsw_extend` takes, with the
 parameters as the kernel's int tuple.
+
+chain's are the anchors and each call's gap table: `chain_batch_from_numpy`
+takes a list of `prepare_call` dicts and returns the flat batch
+`ops.chain.chain_dp` takes (see ops/chain.py), with (max_dist_x,
+max_dist_y, bw).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from .ops.bsw import _params_tuple
 from .ops.bsw_cuda import BATCH_DTYPES
+from .ops.chain_cuda import BATCH_DTYPES as CHAIN_DTYPES
 from .ops.oracle.bsw import DEFAULT_PARAMS
 
 # the compact batch: int8 codes and quals, int32 lengths
@@ -70,3 +76,29 @@ def bsw_batch_from_numpy(batch_np, device, params=DEFAULT_PARAMS):
     out = {k: torch.from_numpy(np.ascontiguousarray(np.asarray(arrays[k]), dtype=_NP[dt])).to(device)
            for k, dt in BATCH_DTYPES.items()}
     return out, _params_tuple(params)
+
+
+def chain_arrays(preps):
+    """(numpy flat batch, (max_dist_x, max_dist_y, bw)) from prepare_call
+    dicts that share those three ints: per-anchor arrays concatenated in
+    call order, `off`/`n` per call, the gap tables stacked."""
+    params = {(p["max_dist_x"], p["max_dist_y"], p["bw"]) for p in preps}
+    if len(params) != 1:
+        raise ValueError(f"a chain batch needs one (max_dist_x, max_dist_y, bw), got {params}")
+    (mdx, mdy, bw), = params
+    n = np.array([p["n"] for p in preps], np.int32)
+    # 32-bit words as int32 (x_lo is uint32: its bits are kept)
+    arrays = {k: np.concatenate([np.asarray(p[k]).view(np.int32) for p in preps])
+              for k in ("x_lo", "qi", "qspan", "st_eff")}
+    arrays["off"] = np.concatenate(([0], np.cumsum(n[:-1], dtype=np.int64)))
+    arrays["n"] = n
+    arrays["gap_table"] = np.stack([np.asarray(p["gap_table"], np.int32) for p in preps])
+    return arrays, (int(mdx), int(mdy), int(bw))
+
+
+def chain_batch_from_numpy(preps, device):
+    """(tensors on `device`, (max_dist_x, max_dist_y, bw)) from a list of
+    prepare_call dicts (the port's, or the JAX package's): the flat batch
+    that `ops.chain.chain_dp` takes, with each call's gap table."""
+    arrays, params = chain_arrays(preps)
+    return {k: torch.from_numpy(arrays[k]).to(device) for k in CHAIN_DTYPES}, params

@@ -1,2 +1,2 @@
-"""Host-side I/O: the phmm test-file and bsw pair-file parsers and length
-bucketing."""
+"""Host-side I/O: the phmm test-file, bsw pair-file and chain anchor-dump
+parsers, and length bucketing."""

@@ -1,2 +1,3 @@
-"""Device operations: the PairHMM forward pass and the banded Smith-Waterman
-extension, their kernel wrappers and the oracles they are held to."""
+"""Device operations: the PairHMM forward pass, the banded Smith-Waterman
+extension and the anchor-chaining DP, their kernel wrappers and the oracles
+they are held to."""

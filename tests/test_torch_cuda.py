@@ -8,18 +8,24 @@ machine that has only PyTorch:
 
 Tolerance: none.  The PairHMM kernel and its plain version do the same
 separate roundings on the same tables, so raw sums must be bit-equal; the
-bsw kernel and its plain version compute in int32, so every output must be
-equal.
+bsw and chain kernels and their plain versions compute in int32, so every
+output must be equal.
 """
+
+import json
 
 import numpy as np
 import pytest
 import torch
 
 from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
-from genomicsbench_palisade_tpu_torch.convert import bsw_batch_from_numpy
+from genomicsbench_palisade_tpu_torch.cli import chain as cli_chain
+from genomicsbench_palisade_tpu_torch.convert import bsw_batch_from_numpy, chain_batch_from_numpy
+from genomicsbench_palisade_tpu_torch.io.chain_dump import ChainCallInput
 from genomicsbench_palisade_tpu_torch.ops import bsw as W
 from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
+from genomicsbench_palisade_tpu_torch.ops import chain as C
+from genomicsbench_palisade_tpu_torch.ops import chain_cuda
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
 from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as WO
@@ -157,3 +163,74 @@ def test_bsw_wrapper_checks_inputs(cuda):
     assert kernel.launches == before
     empty = {k: v if k == "codes" else v[:0] for k, v in tb.items()}
     assert kernel(empty, ptuple).shape == (6, 0)
+
+
+def _chain_preps(seed, n_calls, max_n):
+    """Sorted anchors with query spans 8-29 in y, x gaps of 0-59 with rare
+    jumps past max_dist_x, an empty call, a dense call that takes the
+    max_skip break, and the exact-quarter avg_qspans 25.0 and 50.0."""
+    rng = np.random.default_rng(seed)
+    preps = []
+    for k in range(n_calls):
+        n = 0 if k == 3 else int(rng.integers(1, max_n))
+        dense = k % 5 == 0
+        gaps = rng.integers(0, 4 if dense else 60, n)
+        gaps[rng.random(n) < 0.002] += 6000
+        x = np.cumsum(gaps).astype(np.int64) + 100
+        qpos = np.maximum(x + rng.integers(-30 if dense else -300, 30 if dense else 300, n), 0)
+        y = (rng.integers(8, 30, n).astype(np.uint64) << np.uint64(32)) | qpos.astype(np.uint64)
+        aq = (25.0, 50.0, float(rng.uniform(10, 40)))[k % 3]
+        preps.append(C.prepare_call(x.astype(np.uint64), y, aq))
+    return preps
+
+
+@pytest.mark.cuda
+def test_chain_kernel_equal_to_plain(cuda):
+    tb, params = chain_batch_from_numpy(_chain_preps(13, 48, 3000), cuda)
+    before = chain_cuda.chain_dp.launches
+    got = C.chain_dp(tb, params)
+    torch.cuda.synchronize()
+    assert chain_cuda.chain_dp.launches == before + 1
+    assert torch.equal(got, C.chain_dp_plain(tb, params))
+    # a second launch reuses nothing of the first (targets start at 0 again)
+    assert torch.equal(C.chain_dp(tb, params), got)
+
+
+@pytest.mark.cuda
+def test_chain_goldens_on_card(cuda, fixtures_dir):
+    calls = json.load(open(fixtures_dir / "chain_golden.json"))
+    inputs = [ChainCallInput(c["n"], c["avg_qspan"], c["max_dist_x"], c["max_dist_y"], c["bw"],
+                             c["n_segs"], np.array([int(v) for v in c["x"]], np.uint64),
+                             np.array([int(v) for v in c["y"]], np.uint64)) for c in calls]
+    got = cli_chain.run_calls(inputs, device=cuda)
+    for c, (sc, par, _) in zip(calls, got):
+        np.testing.assert_array_equal(sc, c["scores"])
+        np.testing.assert_array_equal(par, c["parents"])
+    g = np.load(fixtures_dir / "chain_big_golden.npz")
+    cases = range(int(g["n_cases"]))
+    preps = [C.prepare_call(g[f"x{ci}"], g[f"y{ci}"], float(g[f"qspan{ci}"])) for ci in cases]
+    for ci, (sc, par, _) in zip(cases, C.chain_calls(preps, cuda)):
+        np.testing.assert_array_equal(sc, g[f"scores{ci}"], err_msg=f"case {ci}")
+        np.testing.assert_array_equal(par, g[f"parents{ci}"], err_msg=f"case {ci}")
+
+
+@pytest.mark.cuda
+def test_chain_wrapper_checks_inputs(cuda):
+    tb, params = chain_batch_from_numpy(_chain_preps(14, 4, 50), cuda)
+    kernel = chain_cuda.chain_dp
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel({k: v.cpu() for k, v in tb.items()}, params)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel(dict(tb, off=tb["off"].to(torch.int32)), params)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel(dict(tb, x_lo=tb["x_lo"].to(torch.int64)), params)
+    with pytest.raises(ValueError, match="shape"):
+        kernel(dict(tb, qi=tb["qi"][:-1]), params)
+    with pytest.raises(ValueError, match="shape"):
+        kernel(tb, (5000, 5000, 400))  # the gap tables hold bw + 1 = 501 entries
+    with pytest.raises(ValueError, match="params"):
+        kernel(tb, params[:2])
+    assert kernel.launches == before
+    empty = {k: v[:0] for k, v in tb.items()}
+    assert kernel(empty, params).shape == (3, 0)

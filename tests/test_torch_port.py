@@ -17,14 +17,18 @@ from genomicsbench_palisade_tpu.io import phmm_batch as JPB
 from genomicsbench_palisade_tpu.ops import phmm as JP
 from genomicsbench_palisade_tpu_torch import default_device
 from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
+from genomicsbench_palisade_tpu_torch.cli import chain as cli_chain
 from genomicsbench_palisade_tpu_torch.cli import phmm as cli
 from genomicsbench_palisade_tpu_torch.convert import (batch_from_numpy, bsw_batch_from_numpy,
-                                                      tables_from_numpy)
+                                                      chain_batch_from_numpy, tables_from_numpy)
 from genomicsbench_palisade_tpu_torch.io import bucketing as B
+from genomicsbench_palisade_tpu_torch.io import chain_dump
 from genomicsbench_palisade_tpu_torch.io import pairs as bsw_pairs
 from genomicsbench_palisade_tpu_torch.io import phmm_batch as PB
 from genomicsbench_palisade_tpu_torch.ops import bsw as W
 from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
+from genomicsbench_palisade_tpu_torch.ops import chain as CH
+from genomicsbench_palisade_tpu_torch.ops import chain_cuda
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
 from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as O
@@ -225,6 +229,7 @@ bad = [m for m in sys.modules if m == "genomicsbench_palisade_tpu"
 assert not bad, bad
 assert "genomicsbench_palisade_tpu_torch.ops.phmm_cuda" in names, names
 assert "genomicsbench_palisade_tpu_torch.ops.bsw_cuda" in names, names
+assert "genomicsbench_palisade_tpu_torch.ops.chain_cuda" in names, names
 print("ok", len(names))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -258,9 +263,22 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
         cli_bsw.score_pairs_soa(bsw_pairs.parse_pairs_soa(pf))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_bsw.main(["-pairs", str(pf)])
+    cf = tmp_path / "calls.txt"
+    cf.write_text("2 20.0 5000 5000 500 1\n100 64424509490\n150 64424509540\nEOR\n")
+    calls = chain_dump.parse_chain_dump(cf)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_chain.run_calls(calls)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CH.chain_calls([CH.prepare_call(calls[0].x, calls[0].y, 20.0)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_chain.main(["-i", str(cf), "-o", str(tmp_path / "out.txt")])
+    assert not (tmp_path / "out.txt").exists()
     # told the CPU, they run
     assert np.isfinite(P.phmm_likelihoods(batch, "cpu")).all()
     assert cli_bsw.score_pairs(pairs, device="cpu")["score"].tolist() == [13]
+    assert cli_chain.main(["-i", str(cf), "-o", str(tmp_path / "out.txt"), "--device", "cpu"]) == 0
+    # y = 15 << 32 | q: the second anchor chains to the first (tests/test_chain_jax.py:48)
+    assert (tmp_path / "out.txt").read_text() == "2\n15\t-1\n30\t0\nEOR\n"
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
@@ -290,6 +308,23 @@ def test_bsw_cuda_wrapper_rejects_cpu_tensors():
     assert torch.equal(W.bsw_extend(tb, ptuple), W.bsw_extend_plain(tb, ptuple))
     assert kern.launches == before
     assert build.library_path(bsw_cuda.SOURCE).name.startswith("libbsw_extend-")
+
+
+def test_chain_cuda_wrapper_rejects_cpu_tensors():
+    """The chain kernel wrapper never falls back either: CPU tensors are
+    refused before any build or launch, and `ops.chain.chain_dp` sends them
+    to the plain version instead."""
+    x = np.array([100, 150, 160], np.uint64)
+    y = (np.uint64(15) << np.uint64(32)) | np.array([50, 100, 105], np.uint64)
+    tb, params = chain_batch_from_numpy([CH.prepare_call(x, y, 20.0)], "cpu")
+    kern = chain_cuda.chain_dp
+    before = kern.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kern(tb, params)
+    assert kern.launches == before
+    assert torch.equal(CH.chain_dp(tb, params), CH.chain_dp_plain(tb, params))
+    assert kern.launches == before
+    assert build.library_path(chain_cuda.SOURCE).name.startswith("libchain_dp-")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
