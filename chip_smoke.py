@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's PairHMM, bsw and chain paths on one GPU and
-hold their kernels to their plain PyTorch versions.
+"""Drive the PyTorch/CUDA port's PairHMM, bsw, chain and abea paths on one GPU
+and hold their kernels to their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (any failure exits non-zero and prints no result):
   1. environment: Python, torch, CUDA, nvcc and the card (nvidia-smi);
-  2. build csrc/phmm_forward.cu, csrc/bsw_extend.cu and csrc/chain_dp.cu
-     with nvcc, one process per source, started together (timed; ptxas
-     register and spill lines);
+  2. build csrc/phmm_forward.cu, csrc/bsw_extend.cu, csrc/chain_dp.cu,
+     csrc/abea_fill.cu and csrc/abea_walk.cu with nvcc, one process per
+     source, started together (timed; ptxas register and spill lines);
   3. the f32 PairHMM kernel against the plain version on the card, bit for
      bit, at bench.py's shapes 8192x(250x302) and 4096x(250x473), with
      kernel and plain times (CUDA events), GCUPS and the bound;
@@ -61,11 +61,31 @@ Phases (any failure exits non-zero and prints no result):
      bound; the kernel timed on the main path's launch; the 25 + 6
      reference goldens through `run_calls` on the card; up to 8 calls of
      the dump with n <= 1500 against the port's oracle (exactly);
-  9. a `kernels` JSON line, the card's name and power limit, and the last
+  9. the abea kernels (fill and walk) against their plain versions on the
+     card, bit for bit, on 128 reads of 1-4 kb made by the generator of
+     tools/abea_scale_bench.py (synth_read, rng seed 17), with kernel and
+     plain times, band cells/s and the bounds; then the kernels alone on
+     that tool's long-read workload (16 reads of 10-50 kb and one of 100
+     kb, seed 17), which must all align; and the host's event detection
+     on raw signals of those lengths (golden recipe, seed 17);
+ 10. the abea main path, cell abea-512: one f5c batch of 512 reads of
+     1,000-13,450 bases (3,698,945 bases, the reference's `-B 3.7M`), raw
+     signals by the golden recipe of tests/generate_fixtures.py (seeded
+     from --seed) written to an npz and a FASTA; load, `cli.abea.
+     prepare_reads` (events and scalings on the host) and three runs of
+     `cli.abea.run_reads`, launch counts reset just before and read just
+     after; phase split, events/s end to end (load + prep + the median
+     run), the TSV emit timed apart; the run once more under
+     torch.profiler; the CLI's output for the first 20 reads against the
+     TSV of the pooled pairs; every output of the counted run against the
+     plain versions on the same device tensors; the 25 abea goldens on the
+     card; the batch's 8 shortest reads against the port's oracle;
+ 11. a `kernels` JSON line, the card's name and power limit, and the last
      line {"ok": true, "device": {...}}.
 Every measurement is printed as it is taken.  Needs one CUDA card; without
-one it exits 1.  The bsw dataset (~3.8 GB) and the chain dump (~176 MB) are
-written under build/ beside this script and deleted at the end.
+one it exits 1.  The bsw dataset (~3.8 GB), the chain dump (~236 MB) and
+the abea signals (~118 MB) are written under build/ beside this script and
+deleted at the end.
 """
 
 from __future__ import annotations
@@ -87,6 +107,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 DEVICE = "cuda"
+PROFILE_ATTEMPTS = 3  # traces of one run, when a trace shows no device event
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): f32 and f64 outside
 # the tensor cores count an FMA as two operations; the kernel does none.
 F32_OPS_PER_S = 67e12
@@ -130,6 +151,26 @@ CHAIN_SPANS = (10, 30)  # query spans written into y: 10-29, minimap2's k-mer si
 # test, the parent test)
 CHAIN_OPS_PER_VISIT = 5
 CHAIN_OPS_PER_ELIGIBLE = 16
+ABEA_FILL_SOURCE = "genomicsbench_palisade_tpu_torch/csrc/abea_fill.cu"
+ABEA_FILL_REPLACES = "genomicsbench_palisade_tpu/ops/abea_pallas.py:40"
+ABEA_WALK_SOURCE = "genomicsbench_palisade_tpu_torch/csrc/abea_walk.cu"
+ABEA_WALK_REPLACES = "genomicsbench_palisade_tpu/ops/abea_pallas.py:479"
+ABEA_SEED = 17  # tools/abea_scale_bench.py's generator seed
+ABEA_BENCH = (128, 1000, 4000)  # reads, shortest, longest of the kernel-alone cell
+ABEA_LONG = (16, 10_000, 50_000, 100_000)  # abea_scale_bench's reads and its --add-100k read
+ABEA_READS = 512  # the f5c CLI's -K default (genomicsbench_palisade_tpu/cli/abea.py:220)
+ABEA_LENS = (1000, 13450)  # 3,698,945 bases: -B 3.7M of the reference's GPU run
+ABEA_MAX_BASES = "3.7M"  # -B of the reference's GPU run (scripts/run-gpu.sh:32)
+ABEA_CLI_READS = 20
+ABEA_ORACLE_READS = 8
+# operations of csrc/abea_fill.cu a valid cell: f32 6 for the emission
+# (two subtractions, the division, two multiplications, the addition) and 4
+# compares; f64 4 conversions in, 5 additions, 3 conversions out
+ABEA_FILL_F32_OPS = 10
+ABEA_FILL_F64_OPS = 12
+# csrc/abea_walk.cu a step: the emission's 6 f32; one conversion and one addition in f64
+ABEA_WALK_F32_OPS = 6
+ABEA_WALK_F64_OPS = 2
 
 
 def fail(msg: str):
@@ -286,6 +327,78 @@ def synth_bsw_bench_pairs(rng, b=8192, ql=128, tl=256):
     return pairs
 
 
+def synth_model(rng):
+    """tools/abea_scale_bench.py:synth_model: levels N(90, 12), stdv 1-3."""
+    model = {"level_mean": rng.normal(90, 12, 4096).astype(np.float32),
+             "level_stdv": (rng.random(4096) * 2 + 1).astype(np.float32)}
+    model["level_log_stdv"] = np.log(model["level_stdv"]).astype(np.float32)
+    return model
+
+
+def synth_read(rng, model, length):
+    """tools/abea_scale_bench.py:synth_read: a random read and its event
+    means, 1-2 events a k-mer at the model's level plus N(0, 0.4)."""
+    codes = rng.integers(0, 4, length)
+    seq = "".join("ACGT"[c] for c in codes)
+    nk = length - 6 + 1
+    ranks = np.zeros(nk, np.int64)
+    for j in range(6):
+        ranks = (ranks << 2) | codes[j : nk + j]
+    counts = rng.integers(1, 3, nk)
+    means = (np.repeat(model["level_mean"][ranks], counts)
+             + rng.normal(0, 0.4, int(counts.sum())))
+    return seq, means.astype(np.float32)
+
+
+def golden_pore_levels() -> np.ndarray:
+    """tests/generate_fixtures.py:_pore_levels as an array by k-mer rank."""
+    i = np.arange(4096, dtype=np.int64)
+    return 60.0 + 80.0 * ((i * 2654435761) % 4096) / 4096.0
+
+
+def write_pore_model(path):
+    """The golden fixtures' model TSV: each level to 2 decimals, stdv 1.50."""
+    with open(path, "w") as f:
+        f.write("kmer\tlevel_mean\tlevel_stdv\n")
+        for r, mean in enumerate(golden_pore_levels().tolist()):
+            kmer = "".join("ACGT"[(r >> (2 * (5 - j))) & 3] for j in range(6))
+            f.write(f"{kmer}\t{mean:.2f}\t1.50\n")
+
+
+def golden_reads(lengths, rng):
+    """Reads of the given lengths and their raw signals by the golden recipe
+    (tests/generate_fixtures.py:390-426), vectorised: per k-mer 3-13
+    samples at its level plus N(0, 0.8), or N(0, 6.0) for 20% of k-mers.
+    Yields (sequence, f32 signal)."""
+    levels = golden_pore_levels()
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    for n in (int(v) for v in lengths):
+        codes = rng.integers(0, 4, n)
+        nk = n - 5
+        ranks = np.zeros(nk, np.int64)
+        for j in range(6):
+            ranks = (ranks << 2) | codes[j : nk + j]
+        dwell = rng.integers(3, 14, nk)
+        sigma = np.where(rng.random(nk) < 0.8, 0.8, 6.0)
+        sig = (np.repeat(levels[ranks], dwell)
+               + rng.normal(0, 1, int(dwell.sum())) * np.repeat(sigma, dwell))
+        yield acgt[codes].tobytes().decode(), sig.astype(np.float32)
+
+
+def write_abea_dataset(fasta, npz, model_tsv, lengths, rng) -> int:
+    """golden_reads of the given lengths as a FASTA, an npz (read name ->
+    f32 signal) and the model TSV; returns the number of samples."""
+    signals, total = {}, 0
+    with open(fasta, "w") as f:
+        for r, (seq, sig) in enumerate(golden_reads(lengths, rng)):
+            signals[f"read{r}"] = sig
+            total += len(sig)
+            f.write(f">read{r}\n{seq}\n")
+    np.savez(npz, **signals)
+    write_pore_model(model_tsv)
+    return total
+
+
 # ---------------------------------------------------------------- measures
 
 
@@ -337,6 +450,56 @@ def chain_bound(n_anchors: int, n_calls: int, bw: int, st: dict):
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def abea_cells(torch, batch, fill) -> int:
+    """Valid cells of the batch's bands, the cells the fill scores: in band
+    bi of a read, the offsets o < 100 with 0 <= bk + o < nk and 0 <= be - o
+    < ne, where be = bll_e and bk = bi - 2 - be."""
+    ne, nk = batch["ne"].long(), batch["nk"].long()
+    nb = ne + nk + 2
+    read = torch.repeat_interleave(torch.arange(ne.numel(), device=ne.device), nb)
+    bi = torch.arange(read.numel(), device=ne.device) - batch["band_off"][read]
+    be = fill["bll_e"].long()
+    bk = bi - 2 - be
+    lo = torch.maximum(torch.maximum(-bk, be - (ne[read] - 1)), torch.zeros_like(bk))
+    hi = torch.minimum(torch.minimum(nk[read] - bk, be + 1), torch.full_like(bk, 100))
+    return int(torch.where(bi >= 2, (hi - lo).clamp(min=0), 0).sum())
+
+
+def abea_fill_bound(batch, cells: int):
+    """Least time (ms) for the fill: the larger of the bytes it must move
+    (16 an event or k-mer and 64 a read in; 100 of trace, 8 of bll_e and
+    last_val a band and 4 of seed a read out) over HBM bandwidth, and its
+    operations on these inputs (per valid cell ABEA_FILL_F32_OPS f32 and
+    ABEA_FILL_F64_OPS f64) over each type's peak rate."""
+    b, n_ev, n_k = batch["ne"].numel(), batch["ev"].numel(), batch["gm"].numel()
+    rows = n_ev + n_k + 2 * b
+    t_bytes = (4 * n_ev + 12 * n_k + 68 * b + 108 * rows) / HBM_BYTES_PER_S
+    t_ops = max(ABEA_FILL_F32_OPS * cells / F32_OPS_PER_S, ABEA_FILL_F64_OPS * cells / F64_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def abea_walk_bound(n_reads: int, steps: int):
+    """Least time (ms) for the walk: the larger of the bytes it must move
+    (a trace byte, bll_e, the emission's 16 bytes in and a pair out a step;
+    48 bytes a read) over HBM bandwidth, and its operations (a step's
+    ABEA_WALK_F32_OPS f32 and ABEA_WALK_F64_OPS f64) over each peak rate."""
+    t_bytes = (29 * steps + 48 * n_reads) / HBM_BYTES_PER_S
+    t_ops = max(ABEA_WALK_F32_OPS * steps / F32_OPS_PER_S, ABEA_WALK_F64_OPS * steps / F64_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def abea_moves(band_off, walk_np) -> dict:
+    """The walks' moves between consecutive pairs: D (both indices down),
+    U (the event) and L (the k-mer)."""
+    n = walk_np["n"].astype(np.int64)
+    rows = np.concatenate([np.arange(o, o + c - 1) for o, c in zip(band_off, n) if c > 1]
+                          + [np.zeros(0, np.int64)])
+    p = walk_np["pairs"].astype(np.int64)
+    dk, de = p[rows, 0] - p[rows + 1, 0], p[rows, 1] - p[rows + 1, 1]
+    return {"D": int(((dk == 1) & (de == 1)).sum()), "U": int(((dk == 0) & (de == 1)).sum()),
+            "L": int(((dk == 1) & (de == 0)).sum())}
+
+
 def time_ms(torch, fn, reps: int):
     """Best of `reps` single calls, CUDA events; returns (ms, last result)."""
     best, out = math.inf, None
@@ -364,16 +527,22 @@ def max_abs_diff(torch, a, b) -> float:
 
 def device_profile(torch, fn) -> dict:
     """Run fn under torch.profiler; device seconds by kind and the share
-    of the wall time the device was busy (union of its intervals)."""
+    of the wall time the device was busy (union of its intervals).  A
+    trace can come back without any device event (seen once in a while on
+    the H100 box, for a run that launched kernels): then fn runs under a
+    new trace, up to PROFILE_ATTEMPTS times, and the count is reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            break
     spans, kinds = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -385,11 +554,14 @@ def device_profile(torch, fn) -> dict:
                 "phmm_forward_f64" if "phmm_forward_kernel<double" in name else
                 "bsw_extend" if "bsw_extend_kernel" in name else
                 "chain_dp" if "chain_dp_kernel" in name else
+                "abea_fill" if "abea_fill_kernel" in name else
+                "abea_walk" if "abea_walk_kernel" in name else
                 "memcpy_htod" if "HtoD" in name else
                 "memcpy_dtoh" if "DtoH" in name else "other")
         kinds[kind] = kinds.get(kind, 0.0) + (end - start) * 1e-6
     if not spans:
-        return {"wall_s": wall, "device": "not measured (the profiler saw no device events)"}
+        return {"wall_s": wall, "attempts": attempt,
+                "device": "not measured (the profiler saw no device events)"}
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in sorted(spans):
         if cur_e is None or s > cur_e:
@@ -399,7 +571,7 @@ def device_profile(torch, fn) -> dict:
             cur_e = max(cur_e, e)
     busy = (busy + cur_e - cur_s) * 1e-6
     return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
-            "device_s_by_kind": kinds, "device_events": len(spans)}
+            "device_s_by_kind": kinds, "device_events": len(spans), "attempts": attempt}
 
 
 def compare(torch, P, batch_np, dtype, kernel_reps=3, plain_reps=2):
@@ -418,20 +590,28 @@ class Port:
     """The port's modules, imported after the CUDA check."""
 
     def __init__(self):
+        from genomicsbench_palisade_tpu_torch.cli import abea as cli_abea
         from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
         from genomicsbench_palisade_tpu_torch.cli import chain as cli_chain
         from genomicsbench_palisade_tpu_torch.cli import phmm as cli
-        from genomicsbench_palisade_tpu_torch.convert import (bsw_batch_from_numpy,
+        from genomicsbench_palisade_tpu_torch.convert import (abea_batch_from_numpy,
+                                                              bsw_batch_from_numpy,
                                                               chain_batch_from_numpy)
+        from genomicsbench_palisade_tpu_torch.io import signal as abea_signal
         from genomicsbench_palisade_tpu_torch.io import chain_dump
         from genomicsbench_palisade_tpu_torch.io.pairs import parse_pairs_soa
         from genomicsbench_palisade_tpu_torch.io.phmm_batch import parse_testfile
+        from genomicsbench_palisade_tpu_torch.io.fastq import read_sequences
+        from genomicsbench_palisade_tpu_torch.ops import abea as A
+        from genomicsbench_palisade_tpu_torch.ops import abea_cuda
         from genomicsbench_palisade_tpu_torch.ops import bsw as W
         from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
         from genomicsbench_palisade_tpu_torch.ops import chain as C
         from genomicsbench_palisade_tpu_torch.ops import chain_cuda
         from genomicsbench_palisade_tpu_torch.ops import phmm as P
         from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
+        from genomicsbench_palisade_tpu_torch.ops import events as abea_events
+        from genomicsbench_palisade_tpu_torch.ops.oracle import abea as abea_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as bsw_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import chain as chain_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as oracle
@@ -442,8 +622,13 @@ class Port:
                           bsw_cuda=bsw_cuda, P=P, phmm_cuda=phmm_cuda, bsw_oracle=bsw_oracle,
                           oracle=oracle, build=build, cli_chain=cli_chain,
                           chain_batch_from_numpy=chain_batch_from_numpy, chain_dump=chain_dump,
-                          C=C, chain_cuda=chain_cuda, chain_oracle=chain_oracle)
-        self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend, chain_cuda.chain_dp]
+                          C=C, chain_cuda=chain_cuda, chain_oracle=chain_oracle,
+                          cli_abea=cli_abea, abea_batch_from_numpy=abea_batch_from_numpy,
+                          abea_signal=abea_signal, read_sequences=read_sequences, A=A,
+                          abea_cuda=abea_cuda, abea_events=abea_events,
+                          abea_oracle=abea_oracle)
+        self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend, chain_cuda.chain_dp,
+                        *abea_cuda.KERNELS]
 
     def reset_launches(self):
         for k in self.kernels:
@@ -964,6 +1149,241 @@ def chain_phases(torch, port: Port, rec: Record, seed: int):
         fail(f"chain results differ from the oracle in calls {bad}")
 
 
+def abea_time(torch, port, batch, reps=3):
+    """The fill and the walk on `batch`, each the best of `reps` (CUDA
+    events) after a warm-up: (fill ms, fill, walk ms, walk)."""
+    A = port.A
+    A.abea_walk(batch, A.abea_fill(batch))
+    fill_ms, fill = time_ms(torch, lambda: A.abea_fill(batch), reps)
+    walk_ms, walk = time_ms(torch, lambda: A.abea_walk(batch, fill), reps)
+    return fill_ms, fill, walk_ms, walk
+
+
+def abea_check(torch, port, rec, batch, fill, walk, where):
+    """Every output of the kernels against the plain versions on the same
+    tensors (tolerance 0); returns the plain fill's and walk's ms."""
+    A = port.A
+    pf_ms, pf = time_ms(torch, lambda: A.abea_fill_plain(batch), 1)
+    rec.check("abea_fill", max(max_abs_diff(torch, fill[k], v) for k, v in pf.items()), where)
+    pw_ms, pw = time_ms(torch, lambda: A.abea_walk_plain(batch, fill), 1)
+    rec.check("abea_walk", max(max_abs_diff(torch, walk[k], v) for k, v in pw.items()), where)
+    return pf_ms, pw_ms
+
+
+def abea_row(torch, port, batch_np, batch, fill_ms, fill, walk_ms, walk) -> dict:
+    """The kernels' numbers on one batch: bands, valid cells, walk steps,
+    rates, bounds and the reads that align."""
+    walk_np = {k: v.cpu().numpy() for k, v in walk.items()}
+    cells, steps, b = abea_cells(torch, batch, fill), int(walk_np["n"].sum()), len(batch_np["ne"])
+    fb, fby = abea_fill_bound(batch, cells)
+    wb, wby = abea_walk_bound(b, steps)
+    return {"reads": b, "events": int(batch_np["ne"].sum()), "kmers": int(batch_np["nk"].sum()),
+            "bands": port.A.n_rows(batch), "bands_max_read": int((batch_np["ne"] + batch_np["nk"]).max()) + 2,
+            "cells": cells, "walk_steps": steps, "fill_ms": fill_ms, "walk_ms": walk_ms,
+            "cells_per_s": cells / (fill_ms * 1e-3), "fill_bound_ms": fb, "fill_bound_by": fby,
+            "walk_bound_ms": wb, "walk_bound_by": wby,
+            "aligned": sum(1 for r in port.A.decode(batch_np["band_off"], walk_np) if r)}
+
+
+def abea_phases(torch, port: Port, rec: Record, seed: int):
+    """Phases 9 and 10: the abea kernels alone and the abea main path."""
+    A, cli_abea = port.A, port.cli_abea
+
+    # 9. kernels vs plain versions, 128 reads of 1-4 kb (tools/abea_scale_bench.py)
+    rng = np.random.default_rng(ABEA_SEED)
+    model = synth_model(rng)
+    n_reads, lo_len, hi_len = ABEA_BENCH
+    reads = [synth_read(rng, model, n) for n in np.linspace(lo_len, hi_len, n_reads).astype(int)]
+    batch_np, _ = A.prepare_batch([s for s, _ in reads], [e for _, e in reads], model,
+                                  [1.0] * n_reads, [0.0] * n_reads)
+    tb = port.abea_batch_from_numpy(batch_np, DEVICE)
+    fill_ms, fill, walk_ms, walk = abea_time(torch, port, tb)
+    pf_ms, pw_ms = abea_check(torch, port, rec, tb, fill, walk, "128 reads of 1-4 kb")
+    row = {"shape": f"{n_reads} reads of {lo_len}-{hi_len} bases",
+           **abea_row(torch, port, batch_np, tb, fill_ms, fill, walk_ms, walk),
+           "plain_fill_ms": pf_ms, "plain_walk_ms": pw_ms, "max_abs_err": 0.0}
+    log("abea kernels vs plain " + json.dumps(row))
+    if row["aligned"] != n_reads:
+        fail(f"abea: {row['aligned']} of the {n_reads} bench reads aligned")
+
+    # 9. the kernels alone on the long-read workload: 16 reads of 10-50 kb, one of 100 kb
+    rng = np.random.default_rng(ABEA_SEED)
+    model = synth_model(rng)
+    n_long, lmin, lmax, l100 = ABEA_LONG
+    reads = [synth_read(rng, model, n) for n in
+             [*np.linspace(lmin, lmax, n_long).astype(int).tolist(), l100]]
+    batch_np, _ = A.prepare_batch([s for s, _ in reads], [e for _, e in reads], model,
+                                  [1.0] * len(reads), [0.0] * len(reads))
+    tb = port.abea_batch_from_numpy(batch_np, DEVICE)
+    row = {"shape": f"{n_long} reads of {lmin}-{lmax} bases and one of {l100}",
+           **abea_row(torch, port, batch_np, tb, *abea_time(torch, port, tb))}
+    log("abea kernels on long reads " + json.dumps(row))
+    if row["aligned"] != len(reads):
+        fail(f"abea: {row['aligned']} of the {len(reads)} long reads aligned")
+    del tb, reads
+
+    # 9. the host's event detection on signals of the long-read lengths
+    lengths = [*np.linspace(lmin, lmax, n_long).astype(int).tolist(), l100]
+    sigs = [sig for _, sig in golden_reads(lengths, np.random.default_rng(ABEA_SEED))]
+    t0 = time.perf_counter()
+    evs = port.abea_events.detect_events_batch(sigs)
+    det = {"reads": len(sigs), "samples": sum(len(v) for v in sigs),
+           "events": sum(len(e) for e in evs), "events_s": time.perf_counter() - t0,
+           "per_read_loop_reads": port.abea_events.lockstep_split(
+               sorted((len(v) for v in sigs), reverse=True))}
+    log("abea host detection on long-read signals " + json.dumps(det))
+    del sigs, evs
+
+    # 10. the main path, abea-512
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        fa, npz, tsv = Path(tmp) / "reads.fa", Path(tmp) / "signals.npz", Path(tmp) / "pore.tsv"
+        lengths = np.linspace(*ABEA_LENS, ABEA_READS).astype(int)
+        t0 = time.perf_counter()
+        samples = write_abea_dataset(fa, npz, tsv, lengths, np.random.default_rng(seed))
+        log(f"abea dataset: {ABEA_READS} reads, {int(lengths.sum())} bases, {samples} samples, "
+            f"npz {npz.stat().st_size / 1e6:.1f} MB, written in {time.perf_counter() - t0:.1f} s")
+
+        port.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = port.abea_signal.load_pore_model(str(tsv))
+        signals = port.abea_signal.load_signals_npz(str(npz))
+        records = list(port.read_sequences(str(fa)))
+        load_s = time.perf_counter() - t0
+        # one f5c batch: -K 512 reads, -B 3.7M bases
+        groups = list(cli_abea.batches(records, ABEA_READS, cli_abea.parse_bases(ABEA_MAX_BASES)))
+        if len(groups) != 1:
+            fail(f"abea-512 makes {len(groups)} batches at -K {ABEA_READS} -B {ABEA_MAX_BASES}")
+        pstats: dict = {}
+        t0 = time.perf_counter()
+        prep = cli_abea.prepare_reads(records, signals, model, stats=pstats)
+        prep_s = time.perf_counter() - t0
+        stats: dict = {}
+        kept: dict = {}  # the tensors the kernels were given and their outputs
+        t0 = time.perf_counter()
+        results = cli_abea.run_reads(prep, model, DEVICE, stats=stats, keep=kept)
+        runs_s = [time.perf_counter() - t0]
+        launches = port.launches()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            again = cli_abea.run_reads(prep, model, DEVICE)
+            runs_s.append(time.perf_counter() - t0)
+            if again != results:
+                fail("a second run of the abea main path gave other results")
+        run_s_median = float(np.median(runs_s))
+        n_events = sum(len(e) for e in prep.events)
+        total_s = load_s + prep_s + run_s_median
+        t0 = time.perf_counter()
+        tsv_buf = io.StringIO()
+        n_pairs = cli_abea.emit(prep, results, model, tsv_buf)
+        emit_s = time.perf_counter() - t0
+        aligned = sum(1 for r in results if r)
+        walk_np = {k: v.cpu().numpy() for k, v in kept["walk"].items()}
+        e2e = {"reads": len(records), "bases": int(lengths.sum()), "samples": samples,
+               "events": n_events, "reads_aligned": aligned,
+               "reads_qc_dropped": len(results) - aligned,
+               "reads_too_short": prep.n_reads - len(results), "pairs": n_pairs,
+               "moves": abea_moves(kept["batch"]["band_off"].cpu().numpy(), walk_np),
+               "per_read_loop_reads": port.abea_events.lockstep_split(
+                   sorted((len(v) for v in signals.values()), reverse=True)),
+               "load_s": load_s, "prep_s": prep_s, **pstats, **stats, "run_s_all": runs_s,
+               "run_s_median": run_s_median, "total_s": total_s,
+               "events_per_s_end_to_end": n_events / total_s,
+               "reads_per_s_end_to_end": len(records) / total_s, "emit_s": emit_s,
+               "tsv_mb": len(tsv_buf.getvalue()) / 1e6, "launches": launches}
+        del tsv_buf
+        log("abea end to end " + json.dumps(e2e))
+        rec.launched(launches, ("abea_fill", "abea_walk"))
+        if launches["abea_fill"] != 1 or launches["abea_walk"] != 1:
+            fail(f"the abea main path launched {launches}: one fill and one walk expected")
+        if aligned == 0:
+            fail("no read of the abea main path aligned")
+
+        prof = device_profile(torch, lambda: cli_abea.run_reads(prep, model, DEVICE))
+        log("abea profile " + json.dumps(prof))
+
+        # the CLI's output for the first reads equals the TSV of the pooled pairs
+        head, out = Path(tmp) / "head.fa", Path(tmp) / "out.tsv"
+        with open(fa) as src, open(head, "w") as dst:
+            for _ in range(2 * ABEA_CLI_READS):
+                dst.write(src.readline())
+        names = {f"read{r}" for r in range(ABEA_CLI_READS)}
+        sel = [j for j, n in enumerate(prep.names) if n in names]
+        sub = cli_abea.PreparedReads(ABEA_CLI_READS, *([getattr(prep, f)[j] for j in sel]
+                                                       for f in ("names", "seqs", "events",
+                                                                 "shifts", "scales")))
+        want = io.StringIO()
+        want.write(cli_abea.HEADER)
+        want_pairs = cli_abea.emit(sub, [results[j] for j in sel], model, want)
+        with contextlib.redirect_stderr(io.StringIO()) as err_buf:
+            rc = cli_abea.main(["--reads", str(head), "--raw", str(npz), "--model", str(tsv),
+                                "-o", str(out)])
+        summary = f"[eventalign] {ABEA_CLI_READS} reads, {want_pairs} aligned event-kmer pairs"
+        if rc != 0 or out.read_text() != want.getvalue() or summary not in err_buf.getvalue():
+            fail(f"abea CLI output differs from the pooled pairs (rc {rc})")
+        log(f"abea CLI: the output of the first {ABEA_CLI_READS} reads equals the TSV of the "
+            f"pooled pairs ({out.stat().st_size} bytes; {summary})")
+
+        # the goldens through the port's host prep and alignment on the card
+        cases = json.loads((HERE / "tests" / "fixtures" / "abea_golden.json").read_text())["cases"]
+        gtsv = Path(tmp) / "golden_pore.tsv"
+        write_pore_model(gtsv)
+        gmodel = port.abea_signal.load_pore_model(str(gtsv))
+        t0 = time.perf_counter()
+        gev = port.abea_events.detect_events_batch(
+            [np.array([float(x) for x in c["signal"]], np.float32) for c in cases])
+        gsh, gsc = port.abea_events.estimate_scalings_mom_batch([c["seq"] for c in cases],
+                                                                gmodel, gev)
+        got = A.align_events_batch([c["seq"] for c in cases], [e["mean"] for e in gev], gmodel,
+                                   [float(v) for v in gsc], [float(v) for v in gsh], DEVICE)
+        good = sum(e["start"].astype(np.int64).tolist() == [x[0] for x in c["events"]]
+                   and np.array_equal(e["mean"], np.array([float.fromhex(x[2]) for x in c["events"]],
+                                                          np.float32))
+                   and sc == np.float32(float.fromhex(c["scale"]))
+                   and sh == np.float32(float.fromhex(c["shift"]))
+                   and g == [tuple(x) for x in c["pairs"]]
+                   for c, e, sc, sh, g in zip(cases, gev, gsc, gsh, got))
+        log(f"abea goldens abea_golden.json: {good}/{len(cases)} exact (events, scale, shift, "
+            f"pairs; {time.perf_counter() - t0:.1f} s)")
+        if good != len(cases):
+            fail(f"abea goldens: {good}/{len(cases)}")
+
+    # every output of the counted run against the plain versions on the same tensors
+    batch, fill, walk = kept["batch"], kept["fill"], kept["walk"]
+    pf_ms, pw_ms = abea_check(torch, port, rec, batch, fill, walk, "abea-512's counted run")
+    log("abea main path vs plain, every output " + json.dumps(
+        {"bands": A.n_rows(batch), "reads": batch["ne"].numel(), "plain_fill_s": pf_ms * 1e-3,
+         "plain_walk_s": pw_ms * 1e-3}))
+
+    # the kernels on the main path's launch
+    fill_ms, fill2, walk_ms, walk2 = abea_time(torch, port, batch)
+    rec.check("abea_fill", max(max_abs_diff(torch, fill2[k], v) for k, v in fill.items()),
+              "a rerun of the main path's launch")
+    rec.check("abea_walk", max(max_abs_diff(torch, walk2[k], v) for k, v in walk.items()),
+              "a rerun of the main path's launch")
+    batch_np = {k: v.cpu().numpy() for k, v in batch.items()}
+    row = {"shape": "abea-512's launch", **abea_row(torch, port, batch_np, batch, fill_ms, fill2,
+                                                     walk_ms, walk2),
+           "plain_fill_ms": pf_ms, "plain_walk_ms": pw_ms}
+    log("abea kernels on the main path's launch " + json.dumps(row))
+    rec.kern["abea_fill"].update(ms=fill_ms, plain_ms=pf_ms, bound_ms=row["fill_bound_ms"],
+                                 bound_by=row["fill_bound_by"])
+    rec.kern["abea_walk"].update(ms=walk_ms, plain_ms=pw_ms, bound_ms=row["walk_bound_ms"],
+                                 bound_by=row["walk_bound_by"])
+
+    # the batch's shortest reads against the port's oracle, exactly
+    t0 = time.perf_counter()
+    sel = sorted(range(len(prep.seqs)), key=lambda j: len(prep.seqs[j]))[:ABEA_ORACLE_READS]
+    bad = [j for j in sel if port.abea_oracle.align(prep.seqs[j], prep.events[j]["mean"], model,
+                                                    prep.scales[j], prep.shifts[j]) != results[j]]
+    lens = [len(prep.seqs[j]) for j in sel]
+    log(f"abea oracle sample: {len(sel) - len(bad)}/{len(sel)} of the batch's shortest reads "
+        f"({min(lens)}-{max(lens)} bases) exact ({time.perf_counter() - t0:.1f} s)")
+    if bad or len(sel) != ABEA_ORACLE_READS:
+        fail(f"abea results differ from the oracle in reads {bad}")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -998,7 +1418,8 @@ def main(argv=None) -> int:
     log("env " + json.dumps(env))
 
     # 2. build: one nvcc per source, all started together
-    sources = (port.phmm_cuda.SOURCE, port.bsw_cuda.SOURCE, port.chain_cuda.SOURCE)
+    sources = (port.phmm_cuda.SOURCE, port.bsw_cuda.SOURCE, port.chain_cuda.SOURCE,
+               port.abea_cuda.FILL_SOURCE, port.abea_cuda.WALK_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as ex:
         lib_paths = list(ex.map(port.build.build, sources))
@@ -1014,10 +1435,13 @@ def main(argv=None) -> int:
     phmm_phases(torch, port, rec, args.seed)
     bsw_phases(torch, port, rec, args.seed)
     chain_phases(torch, port, rec, args.seed)
+    abea_phases(torch, port, rec, args.seed)
 
-    # 9. the kernels line, the card, the last line
+    # 11. the kernels line, the card, the last line
     where = {"phmm_forward_f32": (SOURCE, REPLACES), "phmm_forward_f64": (SOURCE, REPLACES),
-             "bsw_extend": (BSW_SOURCE, BSW_REPLACES), "chain_dp": (CHAIN_SOURCE, CHAIN_REPLACES)}
+             "bsw_extend": (BSW_SOURCE, BSW_REPLACES), "chain_dp": (CHAIN_SOURCE, CHAIN_REPLACES),
+             "abea_fill": (ABEA_FILL_SOURCE, ABEA_FILL_REPLACES),
+             "abea_walk": (ABEA_WALK_SOURCE, ABEA_WALK_REPLACES)}
     kernels = []
     for name, k in rec.kern.items():
         kernels.append({"name": name, "route": "cuda", "source": where[name][0],

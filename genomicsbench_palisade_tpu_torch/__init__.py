@@ -4,8 +4,10 @@ The JAX package `genomicsbench_palisade_tpu` beside it is the reference;
 this package imports neither it nor `jax`.  Ported so far: PairHMM
 (`ops.phmm`, kernel `csrc/phmm_forward.cu`, CLI `cli.phmm`), banded
 Smith-Waterman extension (`ops.bsw`, kernel `csrc/bsw_extend.cu`, CLI
-`cli.bsw`) and minimap2 anchor chaining (`ops.chain`, kernel
-`csrc/chain_dp.cu`, CLI `cli.chain`).
+`cli.bsw`), minimap2 anchor chaining (`ops.chain`, kernel
+`csrc/chain_dp.cu`, CLI `cli.chain`) and f5c's adaptive banded event
+alignment in read coordinates (`ops.events` host prep, `ops.abea`, kernels
+`csrc/abea_fill.cu` and `csrc/abea_walk.cu`, CLI `cli.abea`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU and no explicit device they raise.  Kernels are built at first use,

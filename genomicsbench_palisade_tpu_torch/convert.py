@@ -15,6 +15,12 @@ chain's are the anchors and each call's gap table: `chain_batch_from_numpy`
 takes a list of `prepare_call` dicts and returns the flat batch
 `ops.chain.chain_dp` takes (see ops/chain.py), with (max_dist_x,
 max_dist_y, bw).
+
+abea's weights are the pore model: `abea_model_from_numpy` takes a model
+dict (`io.signal.load_pore_model`'s, the port's or the JAX package's) and
+returns the f32 rank-indexed arrays `ops.abea.prepare_batch` reads.  Its batch is the
+flat numpy batch of `ops.abea.prepare_batch`; `abea_batch_from_numpy`
+carries it to tensors (see ops/abea.py).
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ import numpy as np
 import torch
 
 from .ops.bsw import _params_tuple
+from .ops.abea_cuda import BATCH_DTYPES as ABEA_DTYPES
 from .ops.bsw_cuda import BATCH_DTYPES
 from .ops.chain_cuda import BATCH_DTYPES as CHAIN_DTYPES
+from .ops.oracle.abea import KMER_SIZE
 from .ops.oracle.bsw import DEFAULT_PARAMS
 
 # the compact batch: int8 codes and quals, int32 lengths
@@ -53,7 +61,9 @@ def tables_from_numpy(tables_np, device) -> dict:
             for k in TABLE_KEYS}
 
 
-_NP = {torch.int8: np.int8, torch.int32: np.int32, torch.int64: np.int64}
+_NP = {torch.int8: np.int8, torch.int32: np.int32, torch.int64: np.int64,
+       torch.float32: np.float32, torch.float64: np.float64}
+ABEA_MODEL_KEYS = ("level_mean", "level_stdv", "level_log_stdv")
 
 
 def bsw_batch_from_numpy(batch_np, device, params=DEFAULT_PARAMS):
@@ -102,3 +112,22 @@ def chain_batch_from_numpy(preps, device):
     that `ops.chain.chain_dp` takes, with each call's gap table."""
     arrays, params = chain_arrays(preps)
     return {k: torch.from_numpy(arrays[k]).to(device) for k in CHAIN_DTYPES}, params
+
+
+def abea_model_from_numpy(model_np) -> dict:
+    """The pore model as `ops.abea.prepare_batch` reads it: contiguous f32
+    `level_mean`, `level_stdv`, `level_log_stdv`, one entry per k-mer rank."""
+    n = 4 ** KMER_SIZE
+    out = {k: np.ascontiguousarray(np.asarray(model_np[k]), dtype=np.float32)
+           for k in ABEA_MODEL_KEYS}
+    for k, v in out.items():
+        if v.shape != (n,):
+            raise ValueError(f"pore model {k} has shape {v.shape}, expected ({n},)")
+    return out
+
+
+def abea_batch_from_numpy(batch_np, device) -> dict:
+    """Tensors on `device` from an ops.abea.prepare_batch flat batch, in the
+    dtypes the kernels take."""
+    return {k: torch.from_numpy(np.ascontiguousarray(np.asarray(batch_np[k]), dtype=_NP[dt]))
+            .to(device) for k, dt in ABEA_DTYPES.items()}

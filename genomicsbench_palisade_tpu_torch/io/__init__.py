@@ -1,2 +1,3 @@
 """Host-side I/O: the phmm test-file, bsw pair-file and chain anchor-dump
-parsers, and length bucketing."""
+parsers, length bucketing, FASTA/FASTQ reads, and abea's raw signals and
+pore model."""

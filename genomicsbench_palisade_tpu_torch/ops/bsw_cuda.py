@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from ..utils import build
+from .kernel import CudaKernel, check_tensor, require_cuda
 
 SOURCE = "bsw_extend"
 # the batch's tensors, in the order of the C signature, with their dtypes
@@ -21,44 +21,22 @@ BATCH_DTYPES = {"codes": torch.int8, "q_off": torch.int64, "q_len": torch.int32,
                 "t_off": torch.int64, "t_len": torch.int32, "h0": torch.int32}
 
 
-class BswExtendKernel:
+class BswExtendKernel(CudaKernel):
     """The bsw_extend kernel: per pair the six int32 ksw_extend outputs."""
 
-    name = "bsw_extend"
-
     def __init__(self):
-        self.launches = 0
-        self._fn = None
-        self._errstr = None
-
-    def _load(self):
-        if self._fn is None:
-            lib = build.load(SOURCE)
-            fn = lib.bsw_extend
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            errstr = lib.bsw_error_string
-            errstr.argtypes = [ctypes.c_int]
-            errstr.restype = ctypes.c_char_p
-            self._fn, self._errstr = fn, errstr
-        return self._fn
+        super().__init__("bsw_extend", SOURCE,
+                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+                         "bsw_error_string")
 
     def _check(self, batch, params):
         dev = batch["h0"].device
-        if dev.type != "cuda":
-            raise ValueError(f"{self.name} runs on CUDA tensors, got {dev}")
+        require_cuda(self.name, dev)
         b = batch["h0"].shape[0]
         for k, dtype in BATCH_DTYPES.items():
-            t = batch[k]
-            if t.device != dev:
-                raise ValueError(f"{self.name}: {k} is on {t.device}, expected {dev}")
-            if t.dtype != dtype:
-                raise ValueError(f"{self.name}: {k} has dtype {t.dtype}, expected {dtype}")
-            if t.dim() != 1 or (k != "codes" and t.shape[0] != b):
-                raise ValueError(f"{self.name}: {k} has shape {tuple(t.shape)}, expected "
-                                 f"{'1-D' if k == 'codes' else (b,)}")
-            if not t.is_contiguous():
-                raise ValueError(f"{self.name}: {k} is not contiguous")
+            # codes: the whole 1-D code buffer; the rest: one entry a pair
+            want = (batch[k].numel(),) if k == "codes" else (b,)
+            check_tensor(self.name, k, batch[k], dev, dtype, want)
         if len(params) != 10 or not all(isinstance(v, int) for v in params):
             raise ValueError(f"{self.name}: params must be 10 ints (ops.bsw._params_tuple)")
         return dev, b
@@ -71,16 +49,10 @@ class BswExtendKernel:
         out = torch.empty((6, b), dtype=torch.int32, device=dev)
         if b == 0:
             return out
-        fn = self._load()
         qe = int(batch["q_len"].max()) + 1
         scratch = torch.empty((qe, b, 2), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(*(batch[k].data_ptr() for k in BATCH_DTYPES), scratch.data_ptr(),
-                     out.data_ptr(), b, *params, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name} launch failed: {self._errstr(err).decode()}")
-        self.launches += 1
+        self.launch(dev, *(batch[k].data_ptr() for k in BATCH_DTYPES), scratch.data_ptr(),
+                    out.data_ptr(), b, *params)
         return out
 
 

@@ -15,37 +15,24 @@ import ctypes
 import torch
 
 from ..convert import INT8_KEYS, INT32_KEYS, TABLE_KEYS
-from ..utils import build
+from .kernel import CudaKernel, check_tensor, require_cuda
 
 SOURCE = "phmm_forward"
 
 
-class PhmmForwardKernel:
+class PhmmForwardKernel(CudaKernel):
     """One instance (float or double) of the PairHMM forward kernel."""
 
     def __init__(self, dtype: torch.dtype):
         self.dtype = dtype
-        self.name = {torch.float32: "phmm_forward_f32", torch.float64: "phmm_forward_f64"}[dtype]
-        self.launches = 0
-        self._fn = None
-        self._errstr = None
-
-    def _load(self):
-        if self._fn is None:
-            lib = build.load(SOURCE)
-            fn = getattr(lib, self.name)
-            fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            errstr = lib.phmm_error_string
-            errstr.argtypes = [ctypes.c_int]
-            errstr.restype = ctypes.c_char_p
-            self._fn, self._errstr = fn, errstr
-        return self._fn
+        name = {torch.float32: "phmm_forward_f32", torch.float64: "phmm_forward_f64"}[dtype]
+        super().__init__(name, SOURCE,
+                         [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                         "phmm_error_string")
 
     def _check(self, batch, tabs, init_y):
         dev = batch["rs_row"].device
-        if dev.type != "cuda":
-            raise ValueError(f"{self.name} runs on CUDA tensors, got {dev}")
+        require_cuda(self.name, dev)
         b, rp = batch["rs_row"].shape
         hp = batch["hap"].shape[1]
         want = {k: (torch.int8, (b, rp)) for k in INT8_KEYS}
@@ -58,15 +45,7 @@ class PhmmForwardKernel:
             args[k] = tabs[k]
             want[k] = (self.dtype, None)
         for k, (dtype, shape) in want.items():
-            t = args[k]
-            if t.device != dev:
-                raise ValueError(f"{self.name}: {k} is on {t.device}, expected {dev}")
-            if t.dtype != dtype:
-                raise ValueError(f"{self.name}: {k} has dtype {t.dtype}, expected {dtype}")
-            if shape is not None and tuple(t.shape) != shape:
-                raise ValueError(f"{self.name}: {k} has shape {tuple(t.shape)}, expected {shape}")
-            if not t.is_contiguous():
-                raise ValueError(f"{self.name}: {k} is not contiguous")
+            check_tensor(self.name, k, args[k], dev, dtype, shape)
         if tabs["ph2pr"].numel() < 128 or tabs["m2m"].numel() < (127 * 128 // 2 + 128):
             raise ValueError(f"{self.name}: lookup tables too short")
         return args, b, rp, hp
@@ -74,20 +53,14 @@ class PhmmForwardKernel:
     def __call__(self, batch, tabs, init_y) -> torch.Tensor:
         """Raw M+X sums [B] for the compact tensor batch (see ops.phmm)."""
         args, b, rp, hp = self._check(batch, tabs, init_y)
-        fn = self._load()
         dev = args["rs_row"].device
         out = torch.empty(b, dtype=self.dtype, device=dev)
         if b == 0:
             return out
         scratch = torch.empty((3, hp, b), dtype=self.dtype, device=dev)
         order = (*INT8_KEYS, *INT32_KEYS, "init_y", *TABLE_KEYS)  # the C signature's
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(*(args[k].data_ptr() for k in order), scratch.data_ptr(),
-                     out.data_ptr(), b, rp, hp, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name} launch failed: {self._errstr(err).decode()}")
-        self.launches += 1
+        self.launch(dev, *(args[k].data_ptr() for k in order), scratch.data_ptr(),
+                    out.data_ptr(), b, rp, hp)
         return out
 
 

@@ -9,25 +9,37 @@ machine that has only PyTorch:
 Tolerance: none.  The PairHMM kernel and its plain version do the same
 separate roundings on the same tables, so raw sums must be bit-equal; the
 bsw and chain kernels and their plain versions compute in int32, so every
-output must be equal.
+output must be equal; the abea kernels and their plain versions do the
+oracle's f32 and f64 roundings, so traces, band positions, last values,
+seeds, pairs and emission sums must be equal bit for bit.
 """
 
 import json
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from genomicsbench_palisade_tpu_torch.cli import abea as cli_abea
 from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
 from genomicsbench_palisade_tpu_torch.cli import chain as cli_chain
-from genomicsbench_palisade_tpu_torch.convert import bsw_batch_from_numpy, chain_batch_from_numpy
+from genomicsbench_palisade_tpu_torch.convert import (abea_batch_from_numpy, bsw_batch_from_numpy,
+                                                      chain_batch_from_numpy)
 from genomicsbench_palisade_tpu_torch.io.chain_dump import ChainCallInput
+from genomicsbench_palisade_tpu_torch.io import signal as SIG
+from genomicsbench_palisade_tpu_torch.ops import abea as A
+from genomicsbench_palisade_tpu_torch.ops import abea_cuda
 from genomicsbench_palisade_tpu_torch.ops import bsw as W
 from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
 from genomicsbench_palisade_tpu_torch.ops import chain as C
 from genomicsbench_palisade_tpu_torch.ops import chain_cuda
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
+from genomicsbench_palisade_tpu_torch.ops.events import (detect_events_batch,
+                                                         estimate_scalings_mom_batch)
+from genomicsbench_palisade_tpu_torch.ops.oracle import abea as AO
 from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as WO
 from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as O
 
@@ -234,3 +246,110 @@ def test_chain_wrapper_checks_inputs(cuda):
     assert kernel.launches == before
     empty = {k: v[:0] for k, v in tb.items()}
     assert kernel(empty, params).shape == (3, 0)
+
+
+def _abea_reads(seed, n, max_len):
+    """Reads of 7 to max_len bases whose events follow a synthetic model,
+    scaled 0.8-1.2 and shifted -4..4, 1-3 events a k-mer; every fifth read
+    gets N(0, 25) noise (QC drops), one read has a single event."""
+    rng = np.random.default_rng(seed)
+    model = {"level_mean": rng.normal(90, 12, 4096).astype(np.float32),
+             "level_stdv": (rng.random(4096) * 2 + 1).astype(np.float32)}
+    model["level_log_stdv"] = np.log(model["level_stdv"]).astype(np.float32)
+    seqs, evs, scales, shifts = [], [], [], []
+    for t in range(n):
+        seq = "".join("ACGT"[c] for c in rng.integers(0, 4, int(rng.integers(7, max_len))))
+        ranks = A.kmer_ranks(seq, 6, len(seq) - 5)
+        sc, sh = np.float32(rng.uniform(0.8, 1.2)), np.float32(rng.uniform(-4, 4))
+        reps = rng.integers(1, 4, len(ranks))
+        ev = (sc * np.repeat(model["level_mean"][ranks], reps) + sh
+              + rng.normal(0, 0.5, reps.sum()) * np.repeat(model["level_stdv"][ranks], reps))
+        if t % 5 == 4:
+            ev = ev + rng.normal(0, 25, len(ev))
+        if t == 7:
+            ev = ev[:1]
+        seqs.append(seq)
+        evs.append(ev.astype(np.float32))
+        scales.append(float(sc))
+        shifts.append(float(sh))
+    return seqs, evs, model, scales, shifts
+
+
+@pytest.mark.cuda
+def test_abea_kernels_equal_to_plain(cuda):
+    seqs, evs, model, scales, shifts = _abea_reads(15, 60, 700)
+    batch_np, idx = A.prepare_batch(seqs, evs, model, scales, shifts)
+    tb = abea_batch_from_numpy(batch_np, cuda)
+    fill_before, walk_before = abea_cuda.abea_fill.launches, abea_cuda.abea_walk.launches
+    fill = A.abea_fill(tb)
+    walk = A.abea_walk(tb, fill)
+    torch.cuda.synchronize()
+    assert abea_cuda.abea_fill.launches == fill_before + 1
+    assert abea_cuda.abea_walk.launches == walk_before + 1
+    want_fill = A.abea_fill_plain(tb)
+    for k, v in want_fill.items():
+        assert torch.equal(fill[k], v), k
+    for k, v in A.abea_walk_plain(tb, fill).items():
+        assert torch.equal(walk[k], v), k
+    got = A.decode(batch_np["band_off"], {k: v.cpu().numpy() for k, v in walk.items()})
+    for r, i in enumerate(idx[:12]):
+        assert got[r] == AO.align(seqs[i], evs[i], model, scales[i], shifts[i]), i
+    assert any(got) and not all(got)
+
+
+@pytest.mark.cuda
+def test_abea_goldens_on_card(cuda, fixtures_dir, tmp_path):
+    sys.path.insert(0, str(Path(__file__).parent))
+    from generate_fixtures import _pore_levels
+
+    path = tmp_path / "pore.tsv"
+    with open(path, "w") as f:
+        f.write("kmer\tlevel_mean\tlevel_stdv\n")
+        for km, mean in _pore_levels().items():
+            f.write(f"{km}\t{mean:.2f}\t1.50\n")
+    model = SIG.load_pore_model(str(path))
+    cases = json.load(open(fixtures_dir / "abea_golden.json"))["cases"]
+    events = detect_events_batch([np.array([float(x) for x in c["signal"]], np.float32)
+                                  for c in cases])
+    shifts, scales = estimate_scalings_mom_batch([c["seq"] for c in cases], model, events)
+    got = A.align_events_batch([c["seq"] for c in cases], [e["mean"] for e in events], model,
+                               [float(v) for v in scales], [float(v) for v in shifts],
+                               device=cuda)
+    for c, ev, g in zip(cases, events, got):
+        assert ev["start"].astype(np.int64).tolist() == [e[0] for e in c["events"]]
+        assert g == [tuple(p) for p in c["pairs"]]
+    assert [float(v) for v in scales] == [float(np.float32(float.fromhex(c["scale"])))
+                                          for c in cases]
+
+
+@pytest.mark.cuda
+def test_abea_wrappers_check_inputs(cuda):
+    seqs, evs, model, scales, shifts = _abea_reads(16, 6, 80)
+    tb = abea_batch_from_numpy(A.prepare_batch(seqs, evs, model, scales, shifts)[0], cuda)
+    fill_k, walk_k = abea_cuda.abea_fill, abea_cuda.abea_walk
+    before = (fill_k.launches, walk_k.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        fill_k({k: v.cpu() for k, v in tb.items()})
+    with pytest.raises(ValueError, match="dtype"):
+        fill_k(dict(tb, lp=tb["lp"].float()))
+    with pytest.raises(ValueError, match="dtype"):
+        fill_k(dict(tb, band_off=tb["band_off"].int()))
+    with pytest.raises(ValueError, match="shape"):
+        fill_k(dict(tb, stdv=tb["stdv"][:-1]))
+    with pytest.raises(ValueError, match="contiguous"):
+        fill_k(dict(tb, lp=tb["lp"].t().contiguous().t()))
+    fill = fill_k(tb)
+    with pytest.raises(ValueError, match="shape"):
+        walk_k(tb, dict(fill, trace=fill["trace"][:-1]))
+    with pytest.raises(ValueError, match="dtype"):
+        walk_k(tb, dict(fill, seed=fill["seed"].long()))
+    with pytest.raises(ValueError, match="CUDA"):
+        walk_k({k: v.cpu() for k, v in tb.items()}, fill)
+    assert (fill_k.launches, walk_k.launches) == (before[0] + 1, before[1])
+    empty = A.prepare_batch([], [], model, [], [])[0]
+    te = abea_batch_from_numpy(empty, cuda)
+    out = fill_k(te)
+    assert out["trace"].shape == (0, 100) and out["seed"].shape == (0,)
+    assert walk_k(te, out)["pairs"].shape == (0, 2)
+    assert cli_abea.run_reads(cli_abea.PreparedReads(0, [], [], [], [], []), model,
+                              device=cuda) == []

@@ -16,15 +16,19 @@ from genomicsbench_palisade_tpu.io import bucketing as JB
 from genomicsbench_palisade_tpu.io import phmm_batch as JPB
 from genomicsbench_palisade_tpu.ops import phmm as JP
 from genomicsbench_palisade_tpu_torch import default_device
+from genomicsbench_palisade_tpu_torch.cli import abea as cli_abea
 from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
 from genomicsbench_palisade_tpu_torch.cli import chain as cli_chain
 from genomicsbench_palisade_tpu_torch.cli import phmm as cli
-from genomicsbench_palisade_tpu_torch.convert import (batch_from_numpy, bsw_batch_from_numpy,
-                                                      chain_batch_from_numpy, tables_from_numpy)
+from genomicsbench_palisade_tpu_torch.convert import (abea_batch_from_numpy, batch_from_numpy,
+                                                      bsw_batch_from_numpy, chain_batch_from_numpy,
+                                                      tables_from_numpy)
 from genomicsbench_palisade_tpu_torch.io import bucketing as B
 from genomicsbench_palisade_tpu_torch.io import chain_dump
 from genomicsbench_palisade_tpu_torch.io import pairs as bsw_pairs
 from genomicsbench_palisade_tpu_torch.io import phmm_batch as PB
+from genomicsbench_palisade_tpu_torch.ops import abea as AB
+from genomicsbench_palisade_tpu_torch.ops import abea_cuda
 from genomicsbench_palisade_tpu_torch.ops import bsw as W
 from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
 from genomicsbench_palisade_tpu_torch.ops import chain as CH
@@ -230,6 +234,7 @@ assert not bad, bad
 assert "genomicsbench_palisade_tpu_torch.ops.phmm_cuda" in names, names
 assert "genomicsbench_palisade_tpu_torch.ops.bsw_cuda" in names, names
 assert "genomicsbench_palisade_tpu_torch.ops.chain_cuda" in names, names
+assert "genomicsbench_palisade_tpu_torch.ops.abea_cuda" in names, names
 print("ok", len(names))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -273,7 +278,18 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_chain.main(["-i", str(cf), "-o", str(tmp_path / "out.txt")])
     assert not (tmp_path / "out.txt").exists()
+    model = _abea_model()
+    fa, npz, tsv = _abea_files(tmp_path, model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AB.align_events_batch(["ACGTACGTAC"], [np.full(6, 90.0, np.float32)], model, [1.0], [0.0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_abea.main(["--reads", str(fa), "--raw", str(npz), "--model", str(tsv),
+                       "-o", str(tmp_path / "abea.tsv")])
+    assert not (tmp_path / "abea.tsv").exists()
     # told the CPU, they run
+    assert cli_abea.main(["--reads", str(fa), "--raw", str(npz), "--model", str(tsv),
+                          "-o", str(tmp_path / "abea.tsv"), "--device", "cpu"]) == 0
+    assert (tmp_path / "abea.tsv").read_text().count("\nr0\t") > 20
     assert np.isfinite(P.phmm_likelihoods(batch, "cpu")).all()
     assert cli_bsw.score_pairs(pairs, device="cpu")["score"].tolist() == [13]
     assert cli_chain.main(["-i", str(cf), "-o", str(tmp_path / "out.txt"), "--device", "cpu"]) == 0
@@ -325,6 +341,56 @@ def test_chain_cuda_wrapper_rejects_cpu_tensors():
     assert torch.equal(CH.chain_dp(tb, params), CH.chain_dp_plain(tb, params))
     assert kern.launches == before
     assert build.library_path(chain_cuda.SOURCE).name.startswith("libchain_dp-")
+
+
+def _abea_model():
+    rng = np.random.default_rng(8)
+    model = {"level_mean": rng.normal(90, 12, 4096).astype(np.float32),
+             "level_stdv": (rng.random(4096) * 2 + 1).astype(np.float32)}
+    model["level_log_stdv"] = np.log(model["level_stdv"]).astype(np.float32)
+    return model
+
+
+def _abea_files(tmp_path, model):
+    """One read of 60 bases, its raw signal (10 samples a k-mer at the
+    model's level) and the model as a TSV."""
+    rng = np.random.default_rng(9)
+    seq = "".join("ACGT"[c] for c in rng.integers(0, 4, 60))
+    ranks = AB.kmer_ranks(seq, 6, 55)
+    raw = np.repeat(model["level_mean"][ranks], 10) + rng.normal(0, 0.5, 550)
+    fa, npz, tsv = tmp_path / "r.fa", tmp_path / "s.npz", tmp_path / "m.tsv"
+    fa.write_text(f">r0\n{seq}\n")
+    np.savez(npz, r0=raw.astype(np.float32))
+    with open(tsv, "w") as f:
+        f.write("kmer\tlevel_mean\tlevel_stdv\n")
+        for r in range(4096):
+            kmer = "".join("ACGT"[(r >> (2 * (5 - j))) & 3] for j in range(6))
+            f.write(f"{kmer}\t{model['level_mean'][r]:.3f}\t{model['level_stdv'][r]:.3f}\n")
+    return fa, npz, tsv
+
+
+def test_abea_cuda_wrappers_reject_cpu_tensors():
+    """The abea kernel wrappers never fall back either: CPU tensors are
+    refused before any build or launch, and `ops.abea.abea_fill`/`abea_walk`
+    send them to the plain versions instead."""
+    model = _abea_model()
+    seq = "ACGTACGTACGTAC"
+    ev = model["level_mean"][AB.kmer_ranks(seq, 6, 9)].repeat(2)
+    tb = abea_batch_from_numpy(AB.prepare_batch([seq], [ev], model, [1.0], [0.0])[0], "cpu")
+    fill_k, walk_k = abea_cuda.abea_fill, abea_cuda.abea_walk
+    before = (fill_k.launches, walk_k.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        fill_k(tb)
+    fill = AB.abea_fill(tb)
+    with pytest.raises(ValueError, match="CUDA"):
+        walk_k(tb, fill)
+    walk = AB.abea_walk(tb, fill)
+    assert (fill_k.launches, walk_k.launches) == before
+    assert all(torch.equal(fill[k], v) for k, v in AB.abea_fill_plain(tb).items())
+    assert all(torch.equal(walk[k], v) for k, v in AB.abea_walk_plain(tb, fill).items())
+    assert walk["n"].item() == 18
+    assert build.library_path(abea_cuda.FILL_SOURCE).name.startswith("libabea_fill-")
+    assert build.library_path(abea_cuda.WALK_SOURCE).name.startswith("libabea_walk-")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
