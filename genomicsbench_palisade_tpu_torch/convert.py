@@ -21,6 +21,11 @@ dict (`io.signal.load_pore_model`'s, the port's or the JAX package's) and
 returns the f32 rank-indexed arrays `ops.abea.prepare_batch` reads.  Its batch is the
 flat numpy batch of `ops.abea.prepare_batch`; `abea_batch_from_numpy`
 carries it to tensors (see ops/abea.py).
+
+fmi's weights are the FM index: `fmi_index_from_numpy` takes a built index
+(`index.fmi_index.DeviceFmIndex`) or the JAX package's device dict
+(`DeviceFmIndex.as_device_arrays()`: `cp_pack` u32 [blocks, 16], `count`,
+`sentinel_index`) and returns the tensors `ops.fmi` reads.
 """
 
 from __future__ import annotations
@@ -131,3 +136,22 @@ def abea_batch_from_numpy(batch_np, device) -> dict:
     dtypes the kernels take."""
     return {k: torch.from_numpy(np.ascontiguousarray(np.asarray(batch_np[k]), dtype=_NP[dt]))
             .to(device) for k, dt in ABEA_DTYPES.items()}
+
+
+def fmi_index_from_numpy(d, device) -> dict:
+    """The FM index as `ops.fmi` reads it, on `device`: `cp_occ` int64
+    [blocks, 8] (the reference's CP_OCC rows), `count` int64 [5] and
+    `sentinel_index` (an int).  `d` is the port's DeviceFmIndex, or a dict
+    holding the JAX package's `cp_pack` (u32 [blocks, 16]: count low
+    words, count high words, one-hot high halves, one-hot low halves)."""
+    if isinstance(d, dict):
+        pack = np.asarray(d["cp_pack"]).astype(np.uint64)
+        counts = pack[:, 0:4] | (pack[:, 4:8] << np.uint64(32))
+        words = (pack[:, 8:12] << np.uint64(32)) | pack[:, 12:16]
+        cp_occ = np.concatenate([counts, words], axis=1).view(np.int64)
+        count, sentinel = d["count"], d["sentinel_index"]
+    else:
+        cp_occ, count, sentinel = d.cp_occ, d.count, d.sentinel_index
+    return {"cp_occ": torch.from_numpy(np.ascontiguousarray(cp_occ, dtype=np.int64)).to(device),
+            "count": torch.from_numpy(np.asarray(count).astype(np.int64)).to(device),
+            "sentinel_index": int(sentinel)}

@@ -11,7 +11,10 @@ separate roundings on the same tables, so raw sums must be bit-equal; the
 bsw and chain kernels and their plain versions compute in int32, so every
 output must be equal; the abea kernels and their plain versions do the
 oracle's f32 and f64 roundings, so traces, band positions, last values,
-seeds, pairs and emission sums must be equal bit for bit.
+seeds, pairs and emission sums must be equal bit for bit; the occ-gather
+kernels XOR integer rows, so their folds must be equal; the fmi pipeline
+and the index builder compute in int64, so the card's results must equal
+the CPU's exactly.
 """
 
 import json
@@ -25,8 +28,10 @@ import torch
 from genomicsbench_palisade_tpu_torch.cli import abea as cli_abea
 from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
 from genomicsbench_palisade_tpu_torch.cli import chain as cli_chain
+from genomicsbench_palisade_tpu_torch.cli import fmi as cli_fmi
 from genomicsbench_palisade_tpu_torch.convert import (abea_batch_from_numpy, bsw_batch_from_numpy,
-                                                      chain_batch_from_numpy)
+                                                      chain_batch_from_numpy, fmi_index_from_numpy)
+from genomicsbench_palisade_tpu_torch.index import builder as IB
 from genomicsbench_palisade_tpu_torch.io.chain_dump import ChainCallInput
 from genomicsbench_palisade_tpu_torch.io import signal as SIG
 from genomicsbench_palisade_tpu_torch.ops import abea as A
@@ -35,6 +40,8 @@ from genomicsbench_palisade_tpu_torch.ops import bsw as W
 from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
 from genomicsbench_palisade_tpu_torch.ops import chain as C
 from genomicsbench_palisade_tpu_torch.ops import chain_cuda
+from genomicsbench_palisade_tpu_torch.ops import fmi_pipeline as FP
+from genomicsbench_palisade_tpu_torch.ops import occ_gather as G
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
 from genomicsbench_palisade_tpu_torch.ops.events import (detect_events_batch,
@@ -353,3 +360,89 @@ def test_abea_wrappers_check_inputs(cuda):
     assert walk_k(te, out)["pairs"].shape == (0, 2)
     assert cli_abea.run_reads(cli_abea.PreparedReads(0, [], [], [], [], []), model,
                               device=cuda) == []
+
+
+def _gather_inputs(seed, rows, n, dev):
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, (rows, 8), dtype=np.int64)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, rows, n).astype(np.int32)).to(dev)
+    return table, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 511, 4096, 100_003])
+def test_occ_gather_kernels_equal_to_plain(cuda, n):
+    table, idx = _gather_inputs(n, 8 * 4097, n, cuda)
+    want = G.occ_gather_row_plain(table, idx)
+    for r in G.ROWS_IN_FLIGHT:
+        assert torch.equal(G.occ_gather_row(table, idx, r), want)
+    assert torch.equal(G.occ_gather_tile(table, idx), G.occ_gather_tile_plain(table, idx))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_occ_gather_wrappers_check_inputs(cuda):
+    table, idx = _gather_inputs(1, 8 * 64, 100, cuda)
+    row_k, tile_k = G.occ_gather_row_cuda, G.occ_gather_tile_cuda
+    before = (row_k.launches, tile_k.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        row_k(table.cpu(), idx.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        row_k(table, idx.long())
+    with pytest.raises(ValueError, match="shape"):
+        row_k(table[:, :4].contiguous(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        row_k(table, idx[::2])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tile_k(table[:-1], idx % 63)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        row_k(table, idx, 4)
+    assert (row_k.launches, tile_k.launches) == before
+    padded = G.pad_to_tiles(table[:-3])
+    assert padded.shape == table.shape and torch.equal(padded[-3:], torch.zeros_like(table[:3]))
+    assert torch.equal(tile_k(padded, idx % 509), G.occ_gather_tile_plain(padded, idx % 509))
+
+
+def _fmi_case(seed, n_bases=3000, n_reads=40, read_len=100):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n_bases).astype(np.uint8)
+    starts = rng.integers(0, n_bases - read_len, n_reads)
+    enc = np.stack([codes[s : s + read_len] for s in starts]).astype(np.int8)
+    enc[rng.random(enc.shape) < 0.02] = 4
+    rl = rng.integers(read_len // 2, read_len + 1, n_reads).astype(np.int32)
+    return codes, enc, rl
+
+
+@pytest.mark.cuda
+def test_fmi_builder_and_pipeline_on_card_equal_cpu(cuda):
+    codes, enc, rl = _fmi_case(3)
+    didx = IB.build_arrays(codes, sa_compression=True, device=cuda)
+    cpu = IB.build_arrays(codes, sa_compression=True, device="cpu")
+    assert didx.sentinel_index == cpu.sentinel_index
+    for key in ("count", "cp_occ", "sa_ms_byte", "sa_ls_word"):
+        np.testing.assert_array_equal(getattr(didx, key), getattr(cpu, key))
+    st = {}
+    got = FP.fmi_pipeline_batch(fmi_index_from_numpy(didx, cuda), enc, rl, min_seed_len=15,
+                                stats=st)
+    want = FP.fmi_pipeline_batch(fmi_index_from_numpy(cpu, "cpu"), enc, rl, min_seed_len=15)
+    assert got[1:] == want[1:] and sum(got[1:4]) > 40
+    for key in want[0]:
+        np.testing.assert_array_equal(got[0][key], want[0][key])
+    assert st["occ_rows"] > 0 and st["steps1"] > 0
+
+
+@pytest.mark.cuda
+def test_fmi_cli_on_card(cuda, tmp_path, capsys):
+    # reads shorter than the slot buffers: the traces are padded before compaction
+    codes, enc, rl = _fmi_case(4, n_reads=20, read_len=40)
+    fa, fq = tmp_path / "ref.fa", tmp_path / "r.fq"
+    fa.write_text(">r\n" + "".join("ACGT"[c] for c in codes) + "\n")
+    with open(fq, "w") as f:
+        for i, (e, n) in enumerate(zip(enc, rl)):
+            f.write(f"@q{i}\n{''.join('ACGTN'[c] for c in e[:n])}\n+\n{'I' * n}\n")
+    assert cli_fmi.main([str(fa), str(fq), "8", "--print-output"]) == 0
+    out = capsys.readouterr().out
+    assert cli_fmi.main([str(fa), str(fq), "8", "--print-output", "--device", "cpu"]) == 0
+    cpu_out = capsys.readouterr().out
+    keep = lambda text: [ln for ln in text.splitlines() if not ln.startswith("Consumed")]
+    assert keep(out) == keep(cpu_out) and "totalSmems = " in out

@@ -19,6 +19,7 @@ from genomicsbench_palisade_tpu_torch import default_device
 from genomicsbench_palisade_tpu_torch.cli import abea as cli_abea
 from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
 from genomicsbench_palisade_tpu_torch.cli import chain as cli_chain
+from genomicsbench_palisade_tpu_torch.cli import fmi as cli_fmi
 from genomicsbench_palisade_tpu_torch.cli import phmm as cli
 from genomicsbench_palisade_tpu_torch.convert import (abea_batch_from_numpy, batch_from_numpy,
                                                       bsw_batch_from_numpy, chain_batch_from_numpy,
@@ -36,6 +37,8 @@ from genomicsbench_palisade_tpu_torch.ops import chain_cuda
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
 from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as O
+from genomicsbench_palisade_tpu_torch.ops import occ_gather
+from genomicsbench_palisade_tpu_torch.tools import occ_gather_experiment as occ_tool
 from genomicsbench_palisade_tpu_torch.utils import build, profiling
 
 REPO = Path(__file__).resolve().parents[1]
@@ -235,6 +238,9 @@ assert "genomicsbench_palisade_tpu_torch.ops.phmm_cuda" in names, names
 assert "genomicsbench_palisade_tpu_torch.ops.bsw_cuda" in names, names
 assert "genomicsbench_palisade_tpu_torch.ops.chain_cuda" in names, names
 assert "genomicsbench_palisade_tpu_torch.ops.abea_cuda" in names, names
+for n in ("cli.fmi", "ops.fmi", "ops.fmi_pipeline", "ops.occ_gather", "ops.oracle.fmi",
+          "index.builder", "index.fmi_index", "tools.occ_gather_experiment"):
+    assert "genomicsbench_palisade_tpu_torch." + n in names, n
 print("ok", len(names))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -286,7 +292,21 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
         cli_abea.main(["--reads", str(fa), "--raw", str(npz), "--model", str(tsv),
                        "-o", str(tmp_path / "abea.tsv")])
     assert not (tmp_path / "abea.tsv").exists()
+    gfa, fq = tmp_path / "g.fa", tmp_path / "q.fq"
+    gfa.write_text(">g\nACGTTGCAACGGTACCATGATTACAGGCATTACCGAT\n")
+    fq.write_text("@q\nGTTGCAACGGTACCATGA\n+\nIIIIIIIIIIIIIIIIII\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_fmi.main([str(gfa), str(fq)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_fmi.prepare(str(gfa), str(fq))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        occ_tool.main([])
     # told the CPU, they run
+    prep = cli_fmi.prepare(str(gfa), str(fq), "cpu")
+    smems = cli_fmi.run(prep.index, prep.enc, prep.rl, 1, 10)[0][0]
+    # the read is genome[2:20]: its whole-read SMEM, and the LAST seed that
+    # ends once 11 bases (min_seed_len + 1) occur fewer than 20 times
+    assert (smems["m"].tolist(), smems["n"].tolist()) == ([0, 0], [17, 10])
     assert cli_abea.main(["--reads", str(fa), "--raw", str(npz), "--model", str(tsv),
                           "-o", str(tmp_path / "abea.tsv"), "--device", "cpu"]) == 0
     assert (tmp_path / "abea.tsv").read_text().count("\nr0\t") > 20
@@ -391,6 +411,24 @@ def test_abea_cuda_wrappers_reject_cpu_tensors():
     assert walk["n"].item() == 18
     assert build.library_path(abea_cuda.FILL_SOURCE).name.startswith("libabea_fill-")
     assert build.library_path(abea_cuda.WALK_SOURCE).name.startswith("libabea_walk-")
+
+
+def test_occ_gather_wrappers_reject_cpu_tensors():
+    """The occ-gather kernel wrappers never fall back either: CPU tensors are
+    refused before any build or launch, and the dispatchers send them to the
+    plain versions instead."""
+    table = torch.arange(8 * 16 * 8, dtype=torch.int64).view(-1, 8)
+    idx = torch.tensor([3, 9, 3, 127], dtype=torch.int32)
+    before = [k.launches for k in occ_gather.KERNELS]
+    with pytest.raises(ValueError, match="CUDA"):
+        occ_gather.occ_gather_row_cuda(table, idx, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        occ_gather.occ_gather_tile_cuda(table, idx)
+    assert torch.equal(occ_gather.occ_gather_row(table, idx), table[9] ^ table[127])
+    assert torch.equal(occ_gather.occ_gather_tile(table, idx),
+                       (table[8:16] ^ table[120:128]).reshape(-1))
+    assert [k.launches for k in occ_gather.KERNELS] == before
+    assert build.library_path(occ_gather.SOURCE).name.startswith("libocc_gather-")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
