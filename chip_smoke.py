@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's PairHMM, bsw, chain, abea and fmi paths and its
-occ-gather probes on one GPU and hold their kernels to their plain PyTorch
-versions.
+occ-gather, bsw roofline and chain roofline probes on one GPU and hold their
+kernels to their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, run in the order 1, 2, 11, 12, 3-10, 13 (any failure exits
+Phases, run in the order 1, 2, 11, 12, 3-10, 13-15 (any failure exits
 non-zero and prints no result):
   1. environment: Python, torch, CUDA, nvcc and the card (nvidia-smi);
   2. build csrc/phmm_forward.cu, csrc/bsw_extend.cu, csrc/chain_dp.cu,
-     csrc/abea_fill.cu, csrc/abea_walk.cu and csrc/occ_gather.cu with nvcc,
-     one process per source, started together (timed; ptxas register and
-     spill lines);
+     csrc/abea_fill.cu, csrc/abea_walk.cu, csrc/occ_gather.cu,
+     csrc/bsw_stripped.cu and csrc/chain_micro.cu with nvcc, one process
+     per source, started together (timed; ptxas register and spill lines);
   3. the f32 PairHMM kernel against the plain version on the card, bit for
      bit, at bench.py's shapes 8192x(250x302) and 4096x(250x473), with
      kernel and plain times (CUDA events), GCUPS and the bound;
@@ -107,7 +107,29 @@ non-zero and prints no result):
      batch 0 against the same batch through the port on the CPU; 8 reads
      against the port's oracle over the same index (`oracle_view`); the 25
      fmi goldens, indexes built and searched on the card;
- 13. a `kernels` JSON line, the card's name and power limit, and the last
+ 13. the bsw roofline probe, cell bsw-roofline-8192: the probe tool
+     (`tools.bsw_roofline.run`) on its workload (8,192 pairs of 128 x 256,
+     rng seed 5, h0 30), launch counts reset just before and read just
+     after (`bsw_stripped` and `bsw_extend` must both launch), the SM
+     clock and power sampled meanwhile; then `bsw_stripped` against its
+     plain version on the card, bit for bit on the whole final H and E
+     [2, 136, 8192], from zero (the tool's input, which must stay all
+     zero) and from a start seeded from --seed (H 0-60, E 0-30, the start
+     that tests the kernel and gives its time), with the tool's strip time
+     over the single call's, the bound, the cells
+     each side computes (every cell of 136 x 256 against the band cells
+     of ksw_extend, counted by the plain bsw version, whose outputs the
+     prod side's are held to) and ns a cell;
+ 14. the chain roofline probe, cell chain-roofline-128x4096: the probe tool
+     (`tools.chain_roofline.run`) on its workload (128 calls of 4096
+     anchors, rng seed 0, w 64, bw 500), counts reset just before and read
+     just after (`chain_micro` and `chain_dp` must both launch), the SM
+     clock and power sampled meanwhile; then
+     `chain_micro` against its plain version on the card, bit for bit on
+     the whole [128, 4096], with times and the bound; the prod side
+     (`chain_dp` on the same anchors, windows 64 back) timed and held to
+     the plain chain version, which counts the predecessors it visits;
+ 15. a `kernels` JSON line, the card's name and power limit, and the last
      line {"ok": true, "device": {...}}.
 Every measurement is printed as it is taken.  Needs one CUDA card; without
 one it exits 1.  The bsw dataset (~3.8 GB), the chain dump (~236 MB), the
@@ -210,6 +232,18 @@ FMI_BATCH = 512  # the reference driver's batch_size default (fmi.cpp)
 FMI_MIN_SEED = 19  # and its min_seed_len
 FMI_ORACLE_READS = 8
 FMI_CLI_READS = 16
+STRIP_SOURCE = "genomicsbench_palisade_tpu_torch/csrc/bsw_stripped.cu"
+STRIP_REPLACES = "tools/bsw_roofline.py:36"
+# int32 operations a cell of csrc/bsw_stripped.cu: score 2, M 3, H0 1, c 2,
+# g 2, the prefix max 1, F 2, j*e_ins 1, H 1, E 4
+STRIP_OPS_PER_CELL = 19
+MICRO_SOURCE = "genomicsbench_palisade_tpu_torch/csrc/chain_micro.cu"
+MICRO_REPLACES = "tools/chain_roofline.py:38"
+# int32 operations a visited predecessor that the chain_micro function needs
+# (csrc/chain_micro.cu's note): dr 1, dq 1, dd 2, eligibility 7 (four
+# compares, three ands), slope 2, ilog 3 (clz, subtract, max), gap 3,
+# min_d 2, candidate 3, max 1
+MICRO_OPS_PER_VISIT = 25
 
 
 def fail(msg: str):
@@ -684,8 +718,10 @@ class Port:
         from genomicsbench_palisade_tpu_torch.ops import abea_cuda
         from genomicsbench_palisade_tpu_torch.ops import bsw as W
         from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
+        from genomicsbench_palisade_tpu_torch.ops import bsw_stripped
         from genomicsbench_palisade_tpu_torch.ops import chain as C
         from genomicsbench_palisade_tpu_torch.ops import chain_cuda
+        from genomicsbench_palisade_tpu_torch.ops import chain_micro
         from genomicsbench_palisade_tpu_torch.ops import fmi_pipeline
         from genomicsbench_palisade_tpu_torch.ops import occ_gather
         from genomicsbench_palisade_tpu_torch.ops import phmm as P
@@ -696,6 +732,9 @@ class Port:
         from genomicsbench_palisade_tpu_torch.ops.oracle import chain as chain_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import fmi as fmi_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as oracle
+        from genomicsbench_palisade_tpu_torch import tools
+        from genomicsbench_palisade_tpu_torch.tools import bsw_roofline as bsw_probe
+        from genomicsbench_palisade_tpu_torch.tools import chain_roofline as chain_probe
         from genomicsbench_palisade_tpu_torch.tools import occ_gather_experiment as occ_tool
         from genomicsbench_palisade_tpu_torch.utils import build
 
@@ -712,9 +751,12 @@ class Port:
                           fmi_index_from_numpy=fmi_index_from_numpy, fmi_builder=fmi_builder,
                           fmi_index=fmi_index, encode_reads=encode_reads,
                           fmi_pipeline=fmi_pipeline, occ_gather=occ_gather,
-                          fmi_oracle=fmi_oracle, occ_tool=occ_tool)
+                          fmi_oracle=fmi_oracle, occ_tool=occ_tool, bsw_stripped=bsw_stripped,
+                          chain_micro=chain_micro, bsw_probe=bsw_probe, chain_probe=chain_probe,
+                          tools=tools)
         self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend, chain_cuda.chain_dp,
-                        *abea_cuda.KERNELS, *occ_gather.KERNELS]
+                        *abea_cuda.KERNELS, *occ_gather.KERNELS, *bsw_stripped.KERNELS,
+                        *chain_micro.KERNELS]
 
     def reset_launches(self):
         for k in self.kernels:
@@ -1726,6 +1768,148 @@ def fmi_phase(torch, port: Port, rec: Record, seed: int):
         fail(f"fmi goldens: {good}/{len(cases)}")
 
 
+def strip_bound(qe_pad: int, tp: int, b: int):
+    """Least time (ms) for the stripped recurrence: the larger of the bytes
+    it must move (query codes, target codes, the H/E start in and the
+    final H/E out, 4 bytes each) over HBM bandwidth and its int32
+    operations (STRIP_OPS_PER_CELL a cell of qe_pad x tp) over the int32
+    rate."""
+    t_bytes = 4 * (qe_pad * b + tp * b + 4 * qe_pad * b) / HBM_BYTES_PER_S
+    t_ops = STRIP_OPS_PER_CELL * qe_pad * tp * b / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def micro_bound(b: int, n_pad: int, w: int):
+    """Least time (ms) for the micro recurrence: the larger of the bytes it
+    must move (x, q and qspan in and the score out, 4 bytes each an anchor;
+    8 a call) over HBM bandwidth and its int32 operations
+    (MICRO_OPS_PER_VISIT a visited predecessor, w an anchor) over the
+    int32 rate."""
+    t_bytes = (16 * b * n_pad + 8 * b) / HBM_BYTES_PER_S
+    t_ops = MICRO_OPS_PER_VISIT * b * n_pad * w / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bsw_roofline_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 13, bsw-roofline-8192: the probe tool on its workload (the
+    counted path), then the stripped kernel against its plain version from
+    two starts, and the cells each side computes."""
+    S, W, tool = port.bsw_stripped, port.W, port.bsw_probe
+    port.reset_launches()
+    torch.cuda.synchronize()
+    with port.tools.SmClock() as clock:
+        res = tool.run(DEVICE)
+        launches = port.launches()
+    log("bsw-roofline-8192 tool " + json.dumps({**res, "launches": launches,
+                                                "clock_min_median_max": clock.summary()}))
+    rec.launched(launches, ("bsw_stripped",))
+    if launches["bsw_extend"] <= 0:
+        fail("bsw_roofline: the prod side did not launch bsw_extend")
+
+    t0 = time.perf_counter()
+    pairs, q_np, t_np = tool.make_workload()
+    q, t = torch.from_numpy(q_np).to(DEVICE), torch.from_numpy(t_np).to(DEVICE)
+    (qe, b), tp = q.shape, t.shape[0]
+    rng = np.random.default_rng(seed)
+    starts = {"zero": (torch.zeros_like(q), torch.zeros_like(q)),
+              "seeded": tuple(torch.from_numpy(rng.integers(0, hi + 1, (qe, b)).astype(np.int32))
+                              .to(DEVICE) for hi in (60, 30))}
+    row = {"pairs": b, "qlen": res["qlen"], "tlen": res["tlen"], "qe_pad": qe}
+    where = {"zero": "zero start, the tool's own input: H and E stay all zero",
+             "seeded": "seeded start, the whole final H and E"}
+    for name, (h, e) in starts.items():
+        S.bsw_stripped(q, t, h, e)  # warm-up
+        ms, got = time_ms(torch, lambda: S.bsw_stripped(q, t, h, e), 5)
+        plain_ms, want = time_ms(torch, lambda: S.bsw_stripped_plain(q, t, h, e), 1)
+        rec.check("bsw_stripped", max_abs_diff(torch, got, want),
+                  f"bsw-roofline-8192 ({where[name]})")
+        row[f"strip_{name}_ms"] = ms
+        row[f"plain_{name}_ms"] = plain_ms
+        row[f"nonzero_{name}"] = int((got != 0).sum())
+    # from H = E = 0 the recurrence never leaves 0, so only the seeded start
+    # can tell a wrong kernel from a right one: it gives the kernels line
+    if row["nonzero_zero"]:
+        fail(f"bsw_roofline: the zero start left {row['nonzero_zero']} nonzero values")
+    if not row["nonzero_seeded"]:
+        fail("bsw_roofline: the seeded start left H and E all zero")
+    strip_ms = row["strip_seeded_ms"]
+    row["tool_strip_over_single_call"] = res["strip_ms"] / row["strip_zero_ms"]
+    bms, by = strip_bound(qe, tp, b)
+
+    # the prod side: ksw_extend's band cells, counted by the plain version,
+    # whose outputs the kernel's equal
+    batch, params = port.bsw_batch_from_numpy(W.prepare_pairs(pairs, q_pad=res["qlen"],
+                                                               t_pad=res["tlen"]), DEVICE)
+    W.bsw_extend(batch, params)  # warm-up
+    prod_ms, prod = time_ms(torch, lambda: W.bsw_extend(batch, params), 5)
+    st = {}
+    rec.check("bsw_extend", max_abs_diff(torch, prod, W.bsw_extend_plain(batch, params, stats=st)),
+              "bsw-roofline-8192 (prod side)")
+    strip_cells = qe * tp * b
+    row["tool_prod_over_single_call"] = res["prod_ms"] / prod_ms
+    row.update(strip_cells=strip_cells, prod_band_cells=st["cells"],
+               tool_cells=b * res["qlen"] * res["tlen"], prod_ms=prod_ms,
+               strip_ns_per_cell=strip_ms * 1e6 / strip_cells,
+               prod_ns_per_band_cell=prod_ms * 1e6 / st["cells"],
+               strip_gcups_all_cells=strip_cells / (strip_ms * 1e-3) / 1e9,
+               prod_gcups_band_cells=st["cells"] / (prod_ms * 1e-3) / 1e9,
+               prod_over_strip=prod_ms / strip_ms, bound_ms=bms, bound_by=by,
+               bound_share=bms / strip_ms, seconds=time.perf_counter() - t0)
+    log("bsw-roofline-8192 kernels vs plain " + json.dumps(row))
+    rec.kern["bsw_stripped"].update(ms=strip_ms, plain_ms=row["plain_seeded_ms"],
+                                    bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def chain_roofline_phase(torch, port: Port, rec: Record):
+    """Phase 14, chain-roofline-128x4096: the probe tool on its workload (the
+    counted path, rng seed 0), then the micro kernel against its plain
+    version, and the prod side timed, held to the plain chain version and
+    its visits counted."""
+    M, C, tool = port.chain_micro, port.C, port.chain_probe
+    w, bw = 64, 500
+    port.reset_launches()
+    torch.cuda.synchronize()
+    with port.tools.SmClock() as clock:
+        res = tool.run(DEVICE, w=w, bw=bw)
+        launches = port.launches()
+    log("chain-roofline-128x4096 tool " + json.dumps({**res, "launches": launches,
+                                                      "clock_min_median_max": clock.summary()}))
+    rec.launched(launches, ("chain_micro",))
+    if launches["chain_dp"] <= 0:
+        fail("chain_roofline: the prod side did not launch chain_dp")
+
+    t0 = time.perf_counter()
+    wl = tool.make_workload()
+    b, n = wl["x"].shape
+    args = [torch.from_numpy(wl[k]).to(DEVICE) for k in ("x", "qi", "qspan", "m_fp", "gap0")]
+    M.chain_micro(*args, w, bw)  # warm-up
+    ms, got = time_ms(torch, lambda: M.chain_micro(*args, w, bw), 5)
+    plain_ms, want = time_ms(torch, lambda: M.chain_micro_plain(*args, w, bw), 1)
+    rec.check("chain_micro", max_abs_diff(torch, got, want), "chain-roofline-128x4096 (whole output)")
+    if int(got.max()) <= 15:
+        fail("chain_roofline: no anchor chained")
+    bms, by = micro_bound(b, n, w)
+
+    batch, params = tool.prod_batch(wl, w, bw, DEVICE)
+    C.chain_dp(batch, params)  # warm-up
+    prod_ms, prod = time_ms(torch, lambda: C.chain_dp(batch, params), 3)
+    st = {}
+    rec.check("chain_dp", max_abs_diff(torch, prod, C.chain_dp_plain(batch, params, st)),
+              "chain-roofline-128x4096 (prod side)")
+    micro_visits = b * n * w
+    row = {"calls": b, "anchors": n, "w": w, "bw": bw, "micro_ms": ms, "plain_ms": plain_ms,
+           "prod_ms": prod_ms, "micro_visits": micro_visits,
+           "prod_visits": st["predecessors"], "prod_scoring_visits": st["eligible"],
+           "prod_breaks": st["breaks"], "micro_ns_per_visit": ms * 1e6 / micro_visits,
+           "prod_ns_per_visit": prod_ms * 1e6 / st["predecessors"],
+           "prod_over_micro": prod_ms / ms, "bound_ms": bms, "bound_by": by,
+           "bound_share": bms / ms, "score_max": int(got.max()),
+           "seconds": time.perf_counter() - t0}
+    log("chain-roofline-128x4096 kernels vs plain " + json.dumps(row))
+    rec.kern["chain_micro"].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                                   library_ms=None)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1761,7 +1945,8 @@ def main(argv=None) -> int:
 
     # 2. build: one nvcc per source, all started together
     sources = (port.phmm_cuda.SOURCE, port.bsw_cuda.SOURCE, port.chain_cuda.SOURCE,
-               port.abea_cuda.FILL_SOURCE, port.abea_cuda.WALK_SOURCE, port.occ_gather.SOURCE)
+               port.abea_cuda.FILL_SOURCE, port.abea_cuda.WALK_SOURCE, port.occ_gather.SOURCE,
+               port.bsw_stripped.SOURCE, port.chain_micro.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as ex:
         lib_paths = list(ex.map(port.build.build, sources))
@@ -1782,14 +1967,18 @@ def main(argv=None) -> int:
     bsw_phases(torch, port, rec, args.seed)
     chain_phases(torch, port, rec, args.seed)
     abea_phases(torch, port, rec, args.seed)
+    bsw_roofline_phase(torch, port, rec, args.seed)
+    chain_roofline_phase(torch, port, rec)
 
-    # 13. the kernels line, the card, the last line
+    # 15. the kernels line, the card, the last line
     where = {"phmm_forward_f32": (SOURCE, REPLACES), "phmm_forward_f64": (SOURCE, REPLACES),
              "bsw_extend": (BSW_SOURCE, BSW_REPLACES), "chain_dp": (CHAIN_SOURCE, CHAIN_REPLACES),
              "abea_fill": (ABEA_FILL_SOURCE, ABEA_FILL_REPLACES),
              "abea_walk": (ABEA_WALK_SOURCE, ABEA_WALK_REPLACES),
              "occ_gather_row": (OCC_SOURCE, OCC_ROW_REPLACES),
-             "occ_gather_tile": (OCC_SOURCE, OCC_TILE_REPLACES)}
+             "occ_gather_tile": (OCC_SOURCE, OCC_TILE_REPLACES),
+             "bsw_stripped": (STRIP_SOURCE, STRIP_REPLACES),
+             "chain_micro": (MICRO_SOURCE, MICRO_REPLACES)}
     kernels = []
     for name, k in rec.kern.items():
         kernels.append({"name": name, "route": "cuda", "source": where[name][0],

@@ -11,10 +11,10 @@ Index argument: a `.npz` (the framework's format, either package's), a
 `.bwt.2bit.64` file (bwa-mem2 binary index), or a FASTA to build from.
 
 `prepare` loads and encodes; `run` is the timed search, one
-`ops.fmi_pipeline.fmi_pipeline_batch` a batch.  `--engine` takes `auto`
-and `device` (the JAX CLI's `tpu`); the native host engine
-(`--engine host`) is not ported yet (ROADMAP queue 1 item 14) and stops
-with an error.
+`ops.fmi_pipeline.fmi_pipeline_batch` a batch.  `--engine` takes the JAX
+CLI's `auto` and `tpu`, both the 3-phase pipeline on the device (`device`
+is an alias of `tpu`); the native host engine (`--engine host`) is not
+ported yet (ROADMAP queue 1 item 14) and stops with an error.
 """
 
 from __future__ import annotations
@@ -116,15 +116,16 @@ def main(argv=None):
     ap.add_argument("--limit", type=int, default=None, help="max reads")
     ap.add_argument("--repeat", type=int, default=1,
                     help="re-run the timed search N times in-process and print each Consumed")
-    ap.add_argument("--engine", choices=("auto", "device", "host"), default="auto",
-                    help="device = the 3-phase pipeline on the device (auto picks it)")
+    ap.add_argument("--engine", choices=("auto", "host", "tpu", "device"), default="auto",
+                    help="tpu (alias device) = the 3-phase pipeline on the device (auto "
+                         "picks it)")
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: cuda; 'cpu' runs "
                          "the plain PyTorch version)")
     args = ap.parse_args(argv)
     if args.engine == "host":
         ap.error("the native host engine (--engine host) is not ported yet "
-                 "(ROADMAP queue 1 item 14); --engine device runs the search on the device")
+                 "(ROADMAP queue 1 item 14); --engine tpu runs the search on the device")
     if args.batch_size < 1:
         ap.error("batch_size must be positive")
 

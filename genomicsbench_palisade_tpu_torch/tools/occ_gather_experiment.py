@@ -8,7 +8,7 @@ are the fmi engine's only memory traffic, so their rate bounds it.  The
 workload is the JAX tool's: a table of 4,000,000 random rows of 64 bytes
 (256 MB, far past the 50 MB L2), rng seed 3, and 16,384 random row
 indices from the same generator.  Variants, each timed as the mean of 10
-calls after one warm-up (CUDA events on a card), each checked against
+calls after `tools.warm_up` (CUDA events on a card), each checked against
 numpy:
   * xla_gather, xla_gather32, xla_gather128: the plain gather
     (`index_select` on the table, then an XOR fold), on the table's 64-byte
@@ -28,13 +28,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
 import torch
 
 from .. import default_device
 from ..ops import occ_gather as G
+from . import time_calls
 
 BLOCKS = 4_000_000
 N_IDX = 16_384
@@ -48,23 +48,6 @@ def make_workload(blocks=BLOCKS, n=N_IDX, seed=SEED):
     tbl = rng.integers(0, 2**32, (blocks, 16), dtype=np.uint64).astype(np.uint32)
     idx = rng.integers(0, blocks, n).astype(np.int32)
     return tbl.view(np.int64), idx
-
-
-def time_calls(fn, dev, iters):
-    """(mean seconds of `iters` calls after a warm-up, the last result)."""
-    out = fn()
-    if dev.type == "cuda":
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            out = fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) * 1e-3 / iters, out
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn()
-    return (time.perf_counter() - t0) / iters, out
 
 
 def run(table_np, idx_np, device, iters=10) -> dict:

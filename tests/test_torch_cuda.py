@@ -14,7 +14,8 @@ oracle's f32 and f64 roundings, so traces, band positions, last values,
 seeds, pairs and emission sums must be equal bit for bit; the occ-gather
 kernels XOR integer rows, so their folds must be equal; the fmi pipeline
 and the index builder compute in int64, so the card's results must equal
-the CPU's exactly.
+the CPU's exactly; the roofline probes' kernels (bsw_stripped, chain_micro)
+compute in int32 that wraps, so every output must be equal.
 """
 
 import json
@@ -38,8 +39,10 @@ from genomicsbench_palisade_tpu_torch.ops import abea as A
 from genomicsbench_palisade_tpu_torch.ops import abea_cuda
 from genomicsbench_palisade_tpu_torch.ops import bsw as W
 from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
+from genomicsbench_palisade_tpu_torch.ops import bsw_stripped as BS
 from genomicsbench_palisade_tpu_torch.ops import chain as C
 from genomicsbench_palisade_tpu_torch.ops import chain_cuda
+from genomicsbench_palisade_tpu_torch.ops import chain_micro as CM
 from genomicsbench_palisade_tpu_torch.ops import fmi_pipeline as FP
 from genomicsbench_palisade_tpu_torch.ops import occ_gather as G
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
@@ -446,3 +449,102 @@ def test_fmi_cli_on_card(cuda, tmp_path, capsys):
     cpu_out = capsys.readouterr().out
     keep = lambda text: [ln for ln in text.splitlines() if not ln.startswith("Consumed")]
     assert keep(out) == keep(cpu_out) and "totalSmems = " in out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["zero", "seeded", "int32_max", "h_max_e_small"])
+def test_bsw_stripped_kernel_equal_to_plain(cuda, start):
+    """The whole final H and E, from starts that wrap and starts that do
+    not, at a query that is not a multiple of 8 and a batch that leaves
+    threads idle.  Each query is its target's head with 8% substituted, as
+    in the probe, so that a nonzero start's main diagonal keeps scoring."""
+    rng = np.random.default_rng(21)
+    qe, tp, b = BS.qe_pad_of(45), 70, 300
+    t = rng.integers(0, 4, (tp, b))
+    q = np.full((qe, b), BS.PAD_CODE)
+    q[:45] = np.where(rng.random((45, b)) < 0.08, rng.integers(0, 4, (45, b)), t[:45])
+    big = 2**31 - 1
+    h, e = {"zero": (np.zeros((qe, b)), np.zeros((qe, b))),
+            "seeded": (rng.integers(0, 61, (qe, b)), rng.integers(0, 31, (qe, b))),
+            "int32_max": (np.full((qe, b), big), np.full((qe, b), big)),
+            "h_max_e_small": (rng.integers(big - 40, big, (qe, b), endpoint=True),
+                              rng.integers(0, 30, (qe, b)))}[start]
+    args = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(cuda) for a in (q, t, h, e)]
+    before = BS.bsw_stripped_cuda.launches
+    got = BS.bsw_stripped(*args)
+    torch.cuda.synchronize()
+    assert BS.bsw_stripped_cuda.launches == before + 1
+    assert torch.equal(got, BS.bsw_stripped_plain(*args))
+    assert got.shape == (2, qe, b) and (start == "zero") == (not got.any())
+
+
+@pytest.mark.cuda
+def test_bsw_stripped_wrapper_checks_inputs(cuda):
+    z = torch.zeros((16, 64), dtype=torch.int32, device=cuda)
+    kernel = BS.bsw_stripped_cuda
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(z.cpu(), z.cpu(), z.cpu(), z.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        kernel(z.long(), z, z, z)
+    with pytest.raises(ValueError, match="shape"):
+        kernel(z, z[:, :32], z, z)
+    with pytest.raises(ValueError, match="shape"):
+        kernel(z, z, z[:8], z)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(z, z, z, torch.zeros((64, 16), dtype=torch.int32, device=cuda).T)
+    with pytest.raises(ValueError, match="6 ints"):
+        kernel(z, z, z, z, (6, 1, 6, 1))
+    assert kernel.launches == before
+    assert kernel(z[:, :0], z[:, :0], z[:, :0], z[:, :0]).shape == (2, 16, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,bw,wrap", [(64, 500, False), (13, 500, True), (5, 100_000, True),
+                                       (700, 500, False)])
+def test_chain_micro_kernel_equal_to_plain(cuda, w, bw, wrap):
+    """Phantom predecessors, windows of 5 to 700 anchors, slopes whose
+    products wrap, and a bw whose log term passes 8, on 67 calls."""
+    rng = np.random.default_rng(w)
+    b, n = 67, 1500
+    steps = rng.integers(1, 40, (b, n))
+    if wrap:
+        steps = steps + (rng.random((b, n)) < 0.1) * rng.integers(20_000, 2_000_000, (b, n))
+    x = np.cumsum(steps, axis=1).astype(np.int64).astype(np.uint32).view(np.int32)
+    qi = np.cumsum(rng.integers(1, 30, (b, n)), axis=1).astype(np.int32)
+    qspan = rng.integers(10, 30, (b, n)).astype(np.int32)
+    m_fp = (rng.integers(0, 2**31, b) if wrap else np.full(b, 157286)).astype(np.int32)
+    gap0 = rng.integers(0, 10, b).astype(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (x, qi, qspan, m_fp, gap0)]
+    before = CM.chain_micro_cuda.launches
+    got = CM.chain_micro(*args, w, bw)
+    torch.cuda.synchronize()
+    assert CM.chain_micro_cuda.launches == before + 1
+    assert torch.equal(got, CM.chain_micro_plain(*args, w, bw))
+    assert int(got.max()) > 30
+
+
+@pytest.mark.cuda
+def test_chain_micro_wrapper_checks_inputs(cuda):
+    z = torch.zeros((4, 96), dtype=torch.int32, device=cuda)
+    zc = torch.zeros(4, dtype=torch.int32, device=cuda)
+    kernel = CM.chain_micro_cuda
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(z.cpu(), z.cpu(), z.cpu(), zc.cpu(), zc.cpu(), 64, 500)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel(z, z.long(), z, zc, zc, 64, 500)
+    with pytest.raises(ValueError, match="shape"):
+        kernel(z, z, z[:, :32], zc, zc, 64, 500)
+    with pytest.raises(ValueError, match="shape"):
+        kernel(z, z, z, zc[:2], zc, 64, 500)
+    with pytest.raises(ValueError, match="w"):
+        kernel(z, z, z, zc, zc, 0, 500)
+    assert kernel.launches == before
+    assert kernel(z[:, :0], z[:, :0], z[:, :0], zc, zc, 64, 500).shape == (4, 0)
+    # a window whose ring passes 48 KB of shared memory (12 bytes an entry)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(np.cumsum(rng.integers(1, 3, (2, 5000)), axis=1).astype(np.int32)).to(cuda)
+    zc2 = torch.zeros(2, dtype=torch.int32, device=cuda)
+    got = kernel(x, x, torch.full_like(x, 15), zc2, zc2, 4200, 500)
+    assert torch.equal(got, CM.chain_micro_plain(x, x, torch.full_like(x, 15), zc2, zc2, 4200, 500))

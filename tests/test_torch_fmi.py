@@ -365,6 +365,24 @@ def test_cli_matches_jax_cli(tmp_path, capsys, monkeypatch, index_kind):
                                            or ln.endswith(":") and ln[:-1].isdigit()]
 
 
+def test_cli_engine_tpu_matches_jax_cli(tmp_path, capsys, monkeypatch):
+    """The JAX CLI's `--engine tpu` command line runs on the port (its
+    `device` is an alias) and prints the JAX CLI's lines but Consumed."""
+    _fa, npz, fq = _cli_inputs(tmp_path)
+    args = [str(npz), str(fq), "16", "18", "--print-output", "--engine"]
+    assert cli.main(args + ["tpu", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert cli.main(args + ["device", "--device", "cpu"]) == 0
+    alias = capsys.readouterr().out
+    monkeypatch.setenv("GENOMICS_TPU_CACHE_DIR", str(tmp_path / "xla"))
+    monkeypatch.setattr(jax, "local_devices", lambda *a, **k: jax.devices()[:1])
+    assert jcli.main(args + ["tpu"]) == 0
+    jout = capsys.readouterr().out
+    keep = lambda text: [ln for ln in text.splitlines() if not ln.startswith("Consumed: ")]
+    assert keep(out) == keep(jout) == keep(alias)
+    assert sum(ln.startswith("num_smem1") for ln in keep(out)) == 3
+
+
 def test_cli_refuses_host_engine_and_copies_imbalance(tmp_path, capsys):
     fa, npz, fq = _cli_inputs(tmp_path, n_reads=4)
     with pytest.raises(SystemExit):

@@ -37,7 +37,10 @@ from genomicsbench_palisade_tpu_torch.ops import chain_cuda
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
 from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as O
-from genomicsbench_palisade_tpu_torch.ops import occ_gather
+from genomicsbench_palisade_tpu_torch.ops import bsw_stripped, chain_micro, occ_gather
+from genomicsbench_palisade_tpu_torch.tools import bsw_idle_timing as bsw_idle
+from genomicsbench_palisade_tpu_torch.tools import bsw_roofline as bsw_probe
+from genomicsbench_palisade_tpu_torch.tools import chain_roofline as chain_probe
 from genomicsbench_palisade_tpu_torch.tools import occ_gather_experiment as occ_tool
 from genomicsbench_palisade_tpu_torch.utils import build, profiling
 
@@ -239,7 +242,9 @@ assert "genomicsbench_palisade_tpu_torch.ops.bsw_cuda" in names, names
 assert "genomicsbench_palisade_tpu_torch.ops.chain_cuda" in names, names
 assert "genomicsbench_palisade_tpu_torch.ops.abea_cuda" in names, names
 for n in ("cli.fmi", "ops.fmi", "ops.fmi_pipeline", "ops.occ_gather", "ops.oracle.fmi",
-          "index.builder", "index.fmi_index", "tools.occ_gather_experiment"):
+          "index.builder", "index.fmi_index", "tools.occ_gather_experiment",
+          "ops.bsw_stripped", "ops.chain_micro", "tools.bsw_roofline", "tools.chain_roofline",
+          "tools.bsw_idle_timing"):
     assert "genomicsbench_palisade_tpu_torch." + n in names, n
 print("ok", len(names))
 """
@@ -301,6 +306,9 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
         cli_fmi.prepare(str(gfa), str(fq))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         occ_tool.main([])
+    for probe in (bsw_probe, chain_probe, bsw_idle):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            probe.main([])
     # told the CPU, they run
     prep = cli_fmi.prepare(str(gfa), str(fq), "cpu")
     smems = cli_fmi.run(prep.index, prep.enc, prep.rl, 1, 10)[0][0]
@@ -328,6 +336,16 @@ def test_cuda_wrapper_rejects_cpu_tensors():
         kern(tb, P.device_tables(torch.float32, "cpu"), P.device_init_y(torch.float32, "cpu", 2))
     assert kern.launches == before
     assert phmm_cuda.KERNELS[torch.float64].name == "phmm_forward_f64"
+    # the roofline probes' kernels
+    z = torch.zeros((8, 4), dtype=torch.int32)
+    zc = torch.zeros(4, dtype=torch.int32)
+    for kern, args in ((bsw_stripped.bsw_stripped_cuda, (z, z, z, z)),
+                       (chain_micro.chain_micro_cuda, (z.T.contiguous(), z.T.contiguous(),
+                                                       z.T.contiguous(), zc, zc, 64, 500))):
+        before = kern.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            kern(*args)
+        assert kern.launches == before
 
 
 def test_bsw_cuda_wrapper_rejects_cpu_tensors():
