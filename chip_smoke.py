@@ -28,7 +28,11 @@ non-zero and prints no result):
      (exactly);
   5. the bsw kernel against its plain version on the card, bit for bit, at
      tools/bench_all.py's shape 8192x(128x256) (8% mutations, h0 20-59),
-     with kernel and plain times, GCUPS and the bound;
+     with kernel and plain times, GCUPS and the bound; then on the edge
+     pairs of `bsw_edge_pairs` (query lengths at lane and bucket edges,
+     breaks, ties, h0 around o_ins + e_ins, seeded from --seed), through
+     `cli.bsw.score_pairs` (each bucket on its edge's instance) and whole
+     on the widest instance;
   6. the bsw main path at the reference's bsw_large size: 10,606,460 pairs
      written with the generator of tools/bsw_scale_bench.py (rng seed 9;
      queries 96-151, targets 192-256), `io.pairs.parse_pairs_soa`, then
@@ -41,14 +45,18 @@ non-zero and prints no result):
      the plain version on the same device tensors (consecutive launches of
      a bucket taken together; tolerance 0: integers), which also counts the
      band cells for the bound; the kernel timed on the main path's largest
-     launch; 512 seeded pairs against the port's oracle (exactly);
+     launch; 512 seeded pairs against the port's oracle (exactly); the 300
+     reference goldens (tests/fixtures/bsw_golden.json) through
+     `cli.bsw.score_pairs` on the card, every output exactly;
   7. the chain kernel against its plain version on the card, bit for bit,
      on 128 calls of 4096 anchors made by the generator of
      tools/chain_scale_bench.py (rng seed 0, avg_qspan 10-40), and on the
      same anchors with query spans 10-29 (--seed) written into y (the
      generator's y has none, so every score there is 0 and no call reaches
      the max_skip break); kernel and plain times, anchors/s, the
-     predecessors visited and the bound;
+     predecessors visited and the bound; then on the edge calls of
+     `chain_edge_calls` (windows of 1-250 and MAX_ITER predecessors, breaks
+     at every offset of a step, in-step marks, ties; seeded from --seed);
   8. the chain main path at the reference dataset's size: 1001 calls,
      12,030,789 anchors, up to 87,271 a call, written with the generator of
      tools/chain_scale_bench.py (rng seed 5) with query spans 10-29 (--seed)
@@ -129,8 +137,9 @@ non-zero and prints no result):
      the whole [128, 4096], with times and the bound; the prod side
      (`chain_dp` on the same anchors, windows 64 back) timed and held to
      the plain chain version, which counts the predecessors it visits;
- 15. a `kernels` JSON line, the card's name and power limit, and the last
-     line {"ok": true, "device": {...}}.
+ 15. each kernel's device seconds over one main-path run (the profiles of
+     phases 4, 6, 8 and 10), a `kernels` JSON line, the card's name and
+     power limit, and the last line {"ok": true, "device": {...}}.
 Every measurement is printed as it is taken.  Needs one CUDA card; without
 one it exits 1.  The bsw dataset (~3.8 GB), the chain dump (~236 MB), the
 abea signals (~118 MB) and the fmi reads and index npz (~0.5 GB) are
@@ -398,6 +407,89 @@ def synth_bsw_bench_pairs(rng, b=8192, ql=128, tl=256):
         q[mut] = rng.integers(0, 4, int(mut.sum()))
         pairs.append((q, t, int(rng.integers(20, 60))))
     return pairs
+
+
+BSW_EDGE_QLENS = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257, 511, 512)
+CHAIN_EDGE_WINDOWS = (1, 31, 32, 33, 200, 250)
+CHAIN_FAR_N = 5100  # anchors one apart: windows of MAX_ITER (5000) predecessors
+
+
+def bsw_edge_pairs(rng, o_ins=6, e_ins=1):
+    """Pairs aimed at the lane layout of csrc/bsw_extend.cu: for each query
+    length of BSW_EDGE_QLENS (a lane's entries, lane and group boundaries,
+    every bucket edge), five kinds, targets of 1 to min(2 qlen + 8, 512)
+    bases:
+      0 the query the target's head with 8% substituted, h0 20-59 (bands
+        wider than 32 entries);
+      1 unrelated bases with 10% ambiguous codes, h0 0-9 (the m == 0 break);
+      2 the target's head for half the query, unrelated bases after it, h0
+        30 (the z-drop break);
+      3 a period of 1-3 bases in both, h0 20-39 (ties in the row max);
+      4 the query the target's head, h0 one of oe_ins - 2 .. oe_ins +
+        3 e_ins and -1, 0 (the first row's decay at its edge)."""
+    oe = o_ins + e_ins
+    h0_edge = (oe - 2, oe - 1, oe, oe + 1, oe + e_ins, oe + 2 * e_ins, oe + 3 * e_ins, -1, 0)
+    pairs = []
+    for n, ql in enumerate(BSW_EDGE_QLENS):
+        for kind in range(5):
+            tl = int(rng.integers(1, min(2 * ql + 8, 512) + 1))
+            if kind == 1:
+                t, q = rng.integers(0, 4, tl), rng.integers(0, 4, ql)
+                t[rng.random(tl) < 0.1] = 4
+                q[rng.random(ql) < 0.1] = 4
+                h0 = int(rng.integers(0, 10))
+            elif kind == 3:
+                period = rng.integers(0, 4, int(rng.integers(1, 4)))
+                t, q = np.resize(period, tl), np.resize(np.roll(period, 1), ql)
+                h0 = int(rng.integers(20, 40))
+            else:
+                base = rng.integers(0, 4, max(tl, ql))
+                t, q = base[:tl], base[:ql].copy()
+                if kind == 2:
+                    q[ql // 2 :] = rng.integers(0, 4, ql - ql // 2)
+                else:
+                    mut = rng.random(ql) < 0.08
+                    q[mut] = rng.integers(0, 4, int(mut.sum()))
+                h0 = (int(rng.integers(20, 60)), 0, 30, 0, h0_edge[n % len(h0_edge)])[kind]
+            pairs.append((q.astype(np.int8), t.astype(np.int8), h0))
+    return pairs
+
+
+def chain_edge_calls(rng):
+    """Calls (x, y, avg_qspan) aimed at the steps of 32 predecessors of
+    csrc/chain_dp.cu, for prepare_call's defaults (max_dist 5000, bw 500):
+      windows of exactly CHAIN_EDGE_WINDOWS predecessors (x steps of
+        5000 // w), the query following x exactly or within half a step;
+      dense calls (x gaps 0-3, the query within 5-60 of x, spans 10-19 or
+        all 15) that break on max_skip at offsets across a step, mark their
+        own step's lanes and tie;
+      one call of CHAIN_FAR_N anchors one apart with the query within
+        20,000 of x, whose windows reach MAX_ITER with few visits passing."""
+    calls = []
+    for w in CHAIN_EDGE_WINDOWS:
+        step = 5000 // w
+        n = w + 60
+        x = 1000 + step * np.arange(n, dtype=np.int64)
+        for jitter in (0, step // 2):
+            qpos = x + rng.integers(-jitter, jitter + 1, n) if jitter else x
+            span = rng.integers(10, 30, n)
+            calls.append((x.astype(np.uint64), pack_y(qpos, span), float(rng.uniform(10, 40))))
+    for k in range(12):
+        n = int(rng.integers(300, 700))
+        x = np.cumsum(rng.integers(0, 1 + k % 4, n)).astype(np.int64) + 500
+        noise = (5, 15, 30, 60)[k % 4]
+        qpos = np.maximum(x + rng.integers(-noise, noise + 1, n), 0)
+        span = np.full(n, 15) if k % 3 == 0 else rng.integers(10, 20, n)
+        calls.append((x.astype(np.uint64), pack_y(qpos, span), float(rng.uniform(10, 40))))
+    x = np.arange(CHAIN_FAR_N, dtype=np.int64) + 10_000
+    qpos = x + rng.integers(-20000, 20000 + 1, CHAIN_FAR_N)
+    calls.append((x.astype(np.uint64), pack_y(qpos, rng.integers(10, 30, CHAIN_FAR_N)), 20.0))
+    return calls
+
+
+def pack_y(qpos, span):
+    """minimap2's y: the query span in bits 32-39, the query position below."""
+    return (np.asarray(span, np.uint64) << np.uint64(32)) | np.asarray(qpos, np.int64).astype(np.uint64)
 
 
 def synth_model(rng):
@@ -772,6 +864,13 @@ class Record:
 
     def __init__(self, names):
         self.kern = {n: {"max_abs_err": 0.0} for n in names}
+        self.device_s = {}  # kernel: its device seconds over one main-path run
+
+    def profiled(self, cell, prof):
+        """Keep each kernel's summed device time from a main path's profile."""
+        for name, secs in prof.get("device_s_by_kind", {}).items():
+            if name in self.kern:
+                self.device_s[name] = {"cell": cell, "device_s": secs}
 
     def check(self, name, err, where):
         self.kern[name]["max_abs_err"] = max(self.kern[name]["max_abs_err"], err)
@@ -857,6 +956,7 @@ def phmm_phases(torch, port: Port, rec: Record, seed: int):
         # where the device time goes: the same run again under torch.profiler
         prof = device_profile(torch, lambda: cli.run_testcases(reads, haps, pairs, device=DEVICE))
         log("profile " + json.dumps(prof))
+        rec.profiled("dataset-550", prof)
 
         # the CLI's printed lines for the first batches equal the pooled results
         n_cli = min(8, len(batches))
@@ -940,8 +1040,8 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
     # 5. kernel vs plain version at tools/bench_all.py's shape
     pairs = synth_bsw_bench_pairs(np.random.default_rng(1))
     tb, ptuple = port.bsw_batch_from_numpy(W.prepare_pairs(pairs, q_pad=128, t_pad=256), DEVICE)
-    W.bsw_extend(tb, ptuple)  # warm-up: first launch
-    ms, got = time_ms(torch, lambda: W.bsw_extend(tb, ptuple), 3)
+    W.bsw_extend(tb, ptuple, q_max=128)  # warm-up: first launch
+    ms, got = time_ms(torch, lambda: W.bsw_extend(tb, ptuple, q_max=128), 3)
     st: dict = {}
     plain_ms, want = time_ms(torch, lambda: W.bsw_extend_plain(tb, ptuple, stats=st), 1)
     err = max_abs_diff(torch, got, want)
@@ -951,6 +1051,20 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
            "band_gcups": st["cells"] / (ms * 1e-3) / 1e9, "bound_ms": bms, "bound_by": by}
     log("bsw kernel vs plain " + json.dumps(row))
     rec.check(name, err, row["shape"])
+
+    # the edge pairs (lane and bucket edges, breaks, ties, h0 around
+    # o_ins + e_ins): through cli.bsw's buckets, each on its edge's instance
+    # of the kernel, and whole on the widest instance
+    pairs = bsw_edge_pairs(np.random.default_rng(seed))
+    tb, ptuple = port.bsw_batch_from_numpy(W.prepare_pairs(pairs), DEVICE)
+    want = W.bsw_extend_plain(tb, ptuple)
+    by_bucket = cli_bsw.score_pairs(pairs, device=DEVICE)
+    got = torch.from_numpy(np.stack([by_bucket[k] for k in W.OUT_ORDER])).to(DEVICE)
+    err = max(max_abs_diff(torch, got, want),
+              max_abs_diff(torch, W.bsw_extend(tb, ptuple, q_max=512), want))
+    log(f"bsw edge pairs: {len(pairs)} pairs, query lengths {BSW_EDGE_QLENS}, "
+        f"max_abs_err {err}")
+    rec.check(name, err, "the edge pairs")
 
     # 6. the main path at the reference's bsw_large size
     (HERE / "build").mkdir(exist_ok=True)
@@ -1000,6 +1114,7 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
 
         prof = device_profile(torch, lambda: cli_bsw.score_pairs_soa(soa, device=DEVICE))
         log("bsw profile " + json.dumps(prof))
+        rec.profiled("bsw-large", prof)
 
         # launch size: the kernel phase of score_pairs_soa on the file's head
         sub = {k: v if k == "codes" else v[:BSW_SWEEP_PAIRS] for k, v in soa.items()}
@@ -1064,7 +1179,7 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
 
     # the kernel and the plain version on the main path's largest launch
     kb = max(kept, key=lambda kb: kb["out"].shape[1])
-    ms, got = time_ms(torch, lambda: W.bsw_extend(kb["batch"], ptuple), 3)
+    ms, got = time_ms(torch, lambda: W.bsw_extend(kb["batch"], ptuple, q_max=kb["bucket"][0]), 3)
     rec.check(name, max_abs_diff(torch, got, kb["out"]), f"a rerun on launch {kb['bucket']}")
     st = {}
     plain_ms, _ = time_ms(torch, lambda: W.bsw_extend_plain(kb["batch"], ptuple, stats=st), 1)
@@ -1092,6 +1207,15 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
         f"({time.perf_counter() - t0:.1f} s)")
     if bad:
         fail(f"bsw results differ from the oracle: {bad[:8]}")
+
+    # the reference goldens through cli.bsw on the card, every output exactly
+    cases = json.loads((HERE / "tests" / "fixtures" / "bsw_golden.json").read_text())
+    got = cli_bsw.score_pairs([(np.array(c["query"], np.int8), np.array(c["target"], np.int8),
+                                c["h0"]) for c in cases], device=DEVICE)
+    good = sum({k: int(got[k][i]) for k in W.OUT_ORDER} == c["out"] for i, c in enumerate(cases))
+    log(f"bsw goldens bsw_golden.json: {good}/{len(cases)} exact")
+    if good != len(cases) or not cases:
+        fail(f"bsw goldens: {good}/{len(cases)}")
 
 
 def chain_inputs(make, calls):
@@ -1135,6 +1259,18 @@ def chain_phases(torch, port: Port, rec: Record, seed: int):
                "scores_nonzero": int((got[0] != 0).sum()), "bound_ms": bms, "bound_by": by}
         log("chain kernel vs plain " + json.dumps(row))
         rec.check(name, err, f"{row['shape']} ({label})")
+
+    # the edge calls (windows of 1-250 and MAX_ITER predecessors, breaks at
+    # every offset of a step, in-step marks, ties)
+    preps = [C.prepare_call(x, y, aq) for x, y, aq in
+             chain_edge_calls(np.random.default_rng(seed))]
+    tb, params = port.chain_batch_from_numpy(preps, DEVICE)
+    st = {}
+    err = max_abs_diff(torch, C.chain_dp(tb, params), C.chain_dp_plain(tb, params, stats=st))
+    log(f"chain edge calls: {len(preps)} calls, {sum(p['n'] for p in preps)} anchors, "
+        f"windows up to {max(p['w_need'] for p in preps)}, {st['breaks']} breaks, "
+        f"max_abs_err {err}")
+    rec.check(name, err, "the edge calls")
 
     # 8. the main path at the reference dataset's size
     (HERE / "build").mkdir(exist_ok=True)
@@ -1188,6 +1324,7 @@ def chain_phases(torch, port: Port, rec: Record, seed: int):
 
         prof = device_profile(torch, lambda: cli_chain.run_calls(calls, device=DEVICE))
         log("chain profile " + json.dumps(prof))
+        rec.profiled("chain-1001", prof)
 
         # the CLI's output file for the dump's first calls equals print_return
         # of the pooled results
@@ -1430,6 +1567,7 @@ def abea_phases(torch, port: Port, rec: Record, seed: int):
 
         prof = device_profile(torch, lambda: cli_abea.run_reads(prep, model, DEVICE))
         log("abea profile " + json.dumps(prof))
+        rec.profiled("abea-512", prof)
 
         # the CLI's output for the first reads equals the TSV of the pooled pairs
         head, out = Path(tmp) / "head.fa", Path(tmp) / "out.tsv"
@@ -1840,8 +1978,8 @@ def bsw_roofline_phase(torch, port: Port, rec: Record, seed: int):
     # whose outputs the kernel's equal
     batch, params = port.bsw_batch_from_numpy(W.prepare_pairs(pairs, q_pad=res["qlen"],
                                                                t_pad=res["tlen"]), DEVICE)
-    W.bsw_extend(batch, params)  # warm-up
-    prod_ms, prod = time_ms(torch, lambda: W.bsw_extend(batch, params), 5)
+    W.bsw_extend(batch, params, q_max=res["qlen"])  # warm-up
+    prod_ms, prod = time_ms(torch, lambda: W.bsw_extend(batch, params, q_max=res["qlen"]), 5)
     st = {}
     rec.check("bsw_extend", max_abs_diff(torch, prod, W.bsw_extend_plain(batch, params, stats=st)),
               "bsw-roofline-8192 (prod side)")
@@ -1986,6 +2124,8 @@ def main(argv=None) -> int:
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                         "library_ms": k.get("library_ms")})
+    log("kernel device seconds over one main-path run (torch.profiler) "
+        + json.dumps(rec.device_s))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,8 +8,9 @@ CUDA unless `--device cpu`.
 
 The whole code buffer goes to the device once per call; the kernel reads
 each query and target in place by (offset, length), so no padded copy is
-built.  Pairs are grouped by padded (qlen, tlen) bucket so that
-neighbouring threads work on pairs of similar length.
+built.  Pairs are grouped by padded (qlen, tlen) bucket: a launch's pairs
+have similar lengths, and its bucket's query edge picks the kernel's
+instance (no readback of the longest query).
 """
 
 from __future__ import annotations
@@ -27,10 +28,8 @@ from ..ops import bsw as B
 from ..ops.oracle.bsw import DEFAULT_PARAMS, BswParams
 
 EDGES = (32, 64, 128, 256, 512)
-# pairs per launch: small enough that each SM's few resident pairs keep
-# their H/E rows in L1 and the launch's scratch fits in L2 (16,384 pairs x
-# 152 entries x 8 bytes = 20 MB); chip_smoke.py's launch-size sweep
-# measures the choice against larger launches
+# pairs per launch; chip_smoke.py's launch-size sweep measures the choice
+# against smaller and larger launches
 DEV_BATCH = 1 << 14
 SOA_DTYPES = {"q_off": np.int64, "q_len": np.int32, "t_off": np.int64,
               "t_len": np.int32, "h0": np.int32}
@@ -88,7 +87,7 @@ def score_pairs_soa(soa, params: BswParams = DEFAULT_PARAMS, edges=EDGES,
         for lo in range(lo_b, hi_b, dev_batch):
             hi = min(lo + dev_batch, hi_b)
             batch = {"codes": codes, **{k: v[lo:hi] for k, v in per_pair.items()}}
-            out = B.bsw_extend(batch, ptuple)
+            out = B.bsw_extend(batch, ptuple, q_max=bucket[0])
             outs.append(out)
             if keep is not None:
                 keep.append({"bucket": bucket, "batch": batch, "out": out})

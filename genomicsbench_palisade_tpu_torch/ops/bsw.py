@@ -235,13 +235,15 @@ def bsw_extend_plain(batch, params=DEFAULT_TUPLE, chunk: int = PLAIN_CHUNK,
     return out
 
 
-def bsw_extend(batch, params=DEFAULT_TUPLE) -> torch.Tensor:
+def bsw_extend(batch, params=DEFAULT_TUPLE, q_max=None) -> torch.Tensor:
     """[6, B] int32 (OUT_ORDER rows) on the batch's device: the CUDA kernel
     for CUDA tensors (it launches or raises), the plain version for CPU
-    tensors."""
+    tensors.  `q_max`, when given, is at least every q_len of the batch
+    (the bucket's query edge): the kernel picks its instance by it instead
+    of reading the longest query back (see ops.bsw_cuda)."""
     dev = batch["h0"].device
     if dev.type == "cuda":
-        return bsw_cuda.bsw_extend(batch, params)
+        return bsw_cuda.bsw_extend(batch, params, q_max)
     if dev.type == "cpu":
         return bsw_extend_plain(batch, params)
     raise ValueError(f"unsupported device {dev}")

@@ -28,7 +28,7 @@ class ChainDpKernel(CudaKernel):
 
     def __init__(self):
         super().__init__("chain_dp", SOURCE,
-                         [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int64]
+                         [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int64]
                          + [ctypes.c_int] * 3 + [ctypes.c_void_p],
                          "chain_error_string")
 
@@ -48,19 +48,17 @@ class ChainDpKernel(CudaKernel):
     def __call__(self, batch, params) -> torch.Tensor:
         """[3, N] int32 (scores, call-local parents, peaks) for the flat
         batch (see ops.chain).  The batch's `off` and `n` must describe
-        calls that lie inside the N anchors: the kernel trusts them."""
+        calls that lie inside the N anchors, and st_eff[i] must be at least
+        i - MAX_ITER (prepare_call's clamp): the kernel trusts them."""
         dev, c, n_total = self._check(batch, params)
         out = torch.empty((3, n_total), dtype=torch.int32, device=dev)
         if c == 0 or n_total == 0:
             return out
-        # the oracle's targets start at 0: a leftover value equal to some i
-        # would count a false skip and move the max_skip break
-        targets = torch.zeros(n_total, dtype=torch.int32, device=dev)
-        # a block a call, in order of call length, longest first: the
+        # a warp a call, in order of call length, longest first: the
         # longest chains start first
         order = torch.argsort(batch["n"], descending=True, stable=True).to(torch.int32)
         self.launch(dev, *(batch[k].data_ptr() for k in BATCH_DTYPES), order.data_ptr(),
-                    targets.data_ptr(), out.data_ptr(), c, n_total, *params)
+                    out.data_ptr(), c, n_total, *params)
         return out
 
 

@@ -40,10 +40,11 @@ def check_tensor(name, key, t, dev, dtype, shape=None):
 class CudaKernel:
     """The C entry `name` of csrc/<source>.cu.  `argtypes` end with the
     stream; the entry returns an int error code that `error_symbol` (a
-    `const char *f(int)` of the same library) describes."""
+    `const char *f(int)` of the same library) describes.  `defines` build
+    a variant of the source's compile-time constants (utils/build.py)."""
 
-    def __init__(self, name, source, argtypes, error_symbol):
-        self.name, self.source = name, source
+    def __init__(self, name, source, argtypes, error_symbol, defines=()):
+        self.name, self.source, self.defines = name, source, tuple(defines)
         self.argtypes, self.error_symbol = argtypes, error_symbol
         self.launches = 0
         self._fn = None
@@ -51,7 +52,7 @@ class CudaKernel:
 
     def _load(self):
         if self._fn is None:
-            lib = build.load(self.source)
+            lib = build.load(self.source, self.defines)
             fn = getattr(lib, self.name)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int

@@ -87,7 +87,7 @@ def run(device, gaps=3, gap_s=15.0, pairs=8192, qlen=128, tlen=256) -> dict:
         return S.bsw_stripped(q, t, zeros, zeros)
 
     def prod():
-        return W.bsw_extend(batch, params)
+        return W.bsw_extend(batch, params, q_max=qlen)
 
     stages = []
     with SmClock(enabled=dev.type == "cuda") as clock:

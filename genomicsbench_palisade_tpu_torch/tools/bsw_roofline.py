@@ -59,7 +59,7 @@ def run(device, pairs=8192, qlen=128, tlen=256, reps=4, chain=8) -> dict:
     batch, params = bsw_batch_from_numpy(W.prepare_pairs(pair_list, q_pad=qlen, t_pad=tlen), dev)
     q_codes, target = torch.from_numpy(q_np).to(dev), torch.from_numpy(t_np).to(dev)
     zeros = torch.zeros_like(q_codes)
-    t_prod, _ = time_calls(lambda: W.bsw_extend(batch, params), dev, chain, reps)
+    t_prod, _ = time_calls(lambda: W.bsw_extend(batch, params, q_max=qlen), dev, chain, reps)
     t_strip, _ = time_calls(lambda: S.bsw_stripped(q_codes, target, zeros, zeros), dev,
                             chain, reps)
     cells = float(pairs) * qlen * tlen

@@ -8,7 +8,9 @@ unchanged source is built once.  A failed build raises; nothing falls back.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false so that no multiply and add
 contract into an FMA (the kernels hold the oracle's rounding bit for bit).
-Never --use_fast_math.
+Never --use_fast_math.  `defines` (("NAME", value) pairs, passed as -D)
+build another variant of a source's compile-time constants beside the
+default one; the port's own path always builds the default.
 """
 
 from __future__ import annotations
@@ -50,22 +52,26 @@ def find_nvcc() -> str:
         "use; install the CUDA toolkit and set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{k}={v}" for k, v in defines)
+
+
+def library_path(name: str, defines=()) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src.read_bytes() + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines=()) -> Path:
     """Compile csrc/<name>.cu unless its library is already built; return
     the library's path.  The compiler's output goes to a .log beside it."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc, *_flags(defines), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -77,8 +83,9 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines=()) -> ctypes.CDLL:
     """The built library of csrc/<name>.cu, built at the first call."""
-    if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(str(build(name)))
-    return _LIBS[name]
+    key = (name, tuple(defines))
+    if key not in _LIBS:
+        _LIBS[key] = ctypes.CDLL(str(build(name, defines)))
+    return _LIBS[key]

@@ -53,6 +53,9 @@ from genomicsbench_palisade_tpu_torch.ops.oracle import abea as AO
 from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as WO
 from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as O
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the edge-case generators)
+
 DTYPES = [torch.float32, torch.float64]
 
 
@@ -182,9 +185,46 @@ def test_bsw_wrapper_checks_inputs(cuda):
         kernel(dict(tb, h0=tb["h0"][:2]), ptuple)
     with pytest.raises(ValueError, match="params"):
         kernel(tb, ptuple[:9])
+    with pytest.raises(ValueError, match="e_ins"):
+        kernel(tb, ptuple[:3] + (-1,) + ptuple[4:])
+    with pytest.raises(ValueError, match="512"):
+        kernel(tb, ptuple, q_max=513)
     assert kernel.launches == before
     empty = {k: v if k == "codes" else v[:0] for k, v in tb.items()}
     assert kernel(empty, ptuple).shape == (6, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [WO.DEFAULT_PARAMS,
+                                    WO.BswParams(o_del=5, e_del=2, o_ins=5, e_ins=2, match=2,
+                                                 mismatch=3)], ids=["default", "m2x3o5e2"])
+def test_bsw_edge_pairs_kernel_equal_to_plain(cuda, params):
+    """chip_smoke.bsw_edge_pairs (lane and bucket edges, breaks, ties, h0
+    around o_ins + e_ins): the whole batch on the widest instance and on
+    the one the longest query picks, and each query edge's pairs on the
+    instance its edge picks."""
+    pairs = chip_smoke.bsw_edge_pairs(np.random.default_rng(3), params.o_ins, params.e_ins)
+    tb, ptuple = bsw_batch_from_numpy(W.prepare_pairs(pairs), cuda, params)
+    want = W.bsw_extend_plain(tb, ptuple)
+    assert torch.equal(W.bsw_extend(tb, ptuple), want)
+    assert torch.equal(W.bsw_extend(tb, ptuple, q_max=512), want)
+    q_len = tb["q_len"].cpu().numpy()
+    edges = np.searchsorted(np.asarray(cli_bsw.EDGES), q_len)
+    for e in np.unique(edges):
+        idx = torch.from_numpy(np.flatnonzero(edges == e)).to(cuda)
+        sub = {k: v if k == "codes" else v[idx] for k, v in tb.items()}
+        got = W.bsw_extend(sub, ptuple, q_max=cli_bsw.EDGES[e])
+        assert torch.equal(got, want[:, idx]), cli_bsw.EDGES[e]
+
+
+@pytest.mark.cuda
+def test_bsw_goldens_on_card(cuda, fixtures_dir):
+    cases = json.load(open(fixtures_dir / "bsw_golden.json"))
+    pairs = [(np.array(c["query"], np.int8), np.array(c["target"], np.int8), c["h0"])
+             for c in cases]
+    got = cli_bsw.score_pairs(pairs, device=cuda)
+    bad = [i for i, c in enumerate(cases) if {k: int(got[k][i]) for k in W.OUT_ORDER} != c["out"]]
+    assert len(cases) == 300 and not bad, bad
 
 
 def _chain_preps(seed, n_calls, max_n):
@@ -216,6 +256,17 @@ def test_chain_kernel_equal_to_plain(cuda):
     assert torch.equal(got, C.chain_dp_plain(tb, params))
     # a second launch reuses nothing of the first (targets start at 0 again)
     assert torch.equal(C.chain_dp(tb, params), got)
+
+
+@pytest.mark.cuda
+def test_chain_edge_calls_kernel_equal_to_plain(cuda):
+    """chip_smoke.chain_edge_calls: windows of 1-250 predecessors and of
+    MAX_ITER, breaks at every offset of a step, in-step marks, ties."""
+    preps = [C.prepare_call(x, y, q) for x, y, q in
+             chip_smoke.chain_edge_calls(np.random.default_rng(0))]
+    tb, params = chain_batch_from_numpy(preps, cuda)
+    got = C.chain_dp(tb, params)
+    assert torch.equal(got, C.chain_dp_plain(tb, params))
 
 
 @pytest.mark.cuda
