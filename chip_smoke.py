@@ -14,7 +14,11 @@ non-zero and prints no result):
      per source, started together (timed; ptxas register and spill lines);
   3. the f32 PairHMM kernel against the plain version on the card, bit for
      bit, at bench.py's shapes 8192x(250x302) and 4096x(250x473), with
-     kernel and plain times (CUDA events), GCUPS and the bound;
+     kernel and plain times (CUDA events), GCUPS and the bound; then both
+     instances on the batches of `phmm_edge_cases` (read lengths at the
+     lane, tile and bucket edges, haps of 1 and h_pad bases, N, quals 0 and
+     126, float underflows, B = 1; r_pad 64-640, so every row-edge instance
+     in one tile and in more; seeded from --seed), tolerance 0;
   4. the PairHMM main path: `cli.phmm.run_testcases` over a testfile written
      from --seed in the shape of the reference benchmark's dataset (550
      batches of <=110 reads x <=37 haps), launch counts reset just before
@@ -23,9 +27,10 @@ non-zero and prints no result):
      torch.profiler for the device's busy share and time by kind; the CLI's
      printed lines against the pooled results; then every raw output of the
      counted run, f32 and f64, bucket by bucket, against the plain version
-     on the same device tensors, the kernels timed on the main path's
-     largest buckets, and 16 seeded testcases against the port's oracle
-     (exactly);
+     on the same device tensors; every launch of the counted run (12 f32,
+     8 f64) timed again on its bucket's tensors, one line each with its
+     cases, ms and bound (the kernels' figures are the largest bucket's);
+     and 16 seeded testcases against the port's oracle (exactly);
   5. the bsw kernel against its plain version on the card, bit for bit, at
      tools/bench_all.py's shape 8192x(128x256) (8% mutations, h0 20-59),
      with kernel and plain times, GCUPS and the bound; then on the edge
@@ -167,13 +172,14 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 DEVICE = "cuda"
 PROFILE_ATTEMPTS = 3  # traces of one run, when a trace shows no device event
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): f32 and f64 outside
-# the tensor cores count an FMA as two operations; the kernel does none.
-F32_OPS_PER_S = 67e12
-F64_OPS_PER_S = 34e12
-# int32: 64 INT32 units per SM (Hopper architecture white paper) x 132 SMs
-# x 1.98 GHz, the boost clock at which the data sheet's 67 TFLOP/s f32 is
-# 128 FP32 units per SM x 2
+# f32 and f64 instruction rates of the H100 SXM outside the tensor cores:
+# 132 SMs x 128 FP32 or 64 FP64 units x 1.98 GHz (the boost clock at which
+# the data sheet gives 67 and 34 TFLOP/s, counting an FMA as two).  Every
+# port kernel is built with -fmad=false and rounds each multiply and add on
+# its own, so each floating-point operation is one instruction.
+F32_OPS_PER_S = 132 * 128 * 1.98e9
+F64_OPS_PER_S = 132 * 64 * 1.98e9
+# int32: 64 INT32 units per SM (Hopper architecture white paper), likewise
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_CELL = 12  # 8 multiplies + 4 adds (csrc/phmm_forward.cu)
@@ -409,9 +415,71 @@ def synth_bsw_bench_pairs(rng, b=8192, ql=128, tl=256):
     return pairs
 
 
+PHMM_EDGE_RPADS = (64, 128, 256, 512, 640)  # the CLI's row buckets, and one past them
+PHMM_EDGE_HPADS = (72, 128, 300, 512, 700)
+# row counts at the lane, tile and bucket edges of every power-of-two L*S
+PHMM_EDGE_RSLENS = (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129,
+                    255, 256, 257, 511, 512, 513)
 BSW_EDGE_QLENS = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257, 511, 512)
 CHAIN_EDGE_WINDOWS = (1, 31, 32, 33, 200, 250)
 CHAIN_FAR_N = 5100  # anchors one apart: windows of MAX_ITER (5000) predecessors
+
+
+def phmm_edge_cases(rng):
+    """Batches (reads, haps, pairs, r_pad, h_pad) aimed at the lane layout
+    of csrc/phmm_forward.cu (a group of lanes a testcase, S rows a lane,
+    tiles of L*S rows), one for each r_pad of PHMM_EDGE_RPADS (with h_pad
+    PHMM_EDGE_HPADS): the CLI's four row buckets and 640, which every
+    instance walks in more than one tile.  For each read length of
+    PHMM_EDGE_RSLENS below r_pad and for r_pad - 1, three testcases:
+      0 the read a noisy (1%) substring of a hap of up to h_pad bases,
+        quals 6-40 (results that stay finite in float up to 639 rows);
+      1 a random read against a random hap of h_pad bases, quals 20-40
+        (the float result underflows past ~20 rows: the f64 path's cases);
+      2 read and hap with 10% N (code 4), quals 0-126 with 0 and 126 at
+        fixed rows, against a hap of 1 base or of a random length.
+    Every batch has an odd size (not a multiple of the testcases a block
+    holds), and one more batch holds a single testcase, a read of 100
+    bases from its hap."""
+    batches = []
+    for rp, hp in zip(PHMM_EDGE_RPADS, PHMM_EDGE_HPADS):
+        reads, haps, pairs = [], [], []
+        lens = [n for n in PHMM_EDGE_RSLENS if n < rp - 1] + [rp - 1]
+        for rl in lens:
+            for kind in range(3):
+                if kind == 0:
+                    hl = int(rng.integers(rl, max(rl, hp) + 1)) if rl <= hp else hp
+                    hap = rng.integers(0, 4, hl)
+                    if rl <= hl:
+                        s = int(rng.integers(0, hl - rl + 1))
+                        bases = hap[s : s + rl].copy()
+                    else:
+                        bases = rng.integers(0, 4, rl)
+                    noise = rng.random(rl) < 0.01
+                    bases[noise] = rng.integers(0, 4, int(noise.sum()))
+                    quals = {k: rng.integers(6, 41, rl) for k in "qidc"}
+                elif kind == 1:
+                    hap, bases = rng.integers(0, 4, hp), rng.integers(0, 4, rl)
+                    quals = {k: rng.integers(20, 41, rl) for k in "qidc"}
+                else:
+                    hl = 1 if len(haps) % 2 else int(rng.integers(2, hp + 1))
+                    hap, bases = rng.integers(0, 4, hl), rng.integers(0, 4, rl)
+                    hap[rng.random(hl) < 0.1] = 4
+                    bases[rng.random(rl) < 0.1] = 4
+                    quals = {k: rng.integers(0, 127, rl) for k in "qidc"}
+                    for j, k in enumerate("qidc"):
+                        quals[k][j % rl] = 0
+                        quals[k][(j + rl // 2) % rl] = 126
+                reads.append({"bases": bases, **quals})
+                haps.append(hap)
+                pairs.append((len(reads) - 1, len(haps) - 1))
+        if len(pairs) % 2 == 0:
+            pairs.append((len(reads) - 1, 0))
+        batches.append((reads, haps, pairs, rp, hp))
+    hap = rng.integers(0, 4, 120)
+    read = {"bases": hap[10:110].copy(), **{k: rng.integers(10, 41, 100) for k in "qidc"}}
+    batches.append(([read], [hap], [(0, 0)], 128, 128))
+    return batches
 
 
 def bsw_edge_pairs(rng, o_ins=6, e_ins=1):
@@ -602,7 +670,7 @@ def cells_of(batch_np) -> int:
 def bound(batch_np, itemsize: int, ops_per_s: float, table_elems: int):
     """Least time for the function on these inputs: the larger of the bytes
     it must move (each input once, the output once) over HBM bandwidth and
-    its operations (12 per real cell) over the peak rate."""
+    its operations (12 per real cell) over the instruction rate."""
     b, rp = batch_np["rs_row"].shape
     hp = batch_np["hap"].shape[1]
     nbytes = 5 * b * rp + b * hp + 8 * b + itemsize * (hp + 1 + table_elems) + itemsize * b
@@ -905,6 +973,19 @@ def phmm_phases(torch, port: Port, rec: Record, seed: int):
         log("f32 kernel vs plain " + json.dumps(row))
         rec.check("phmm_forward_f32", err, row["shape"])
 
+    # both instances on the edge cases, each batch at its r_pad
+    edge = phmm_edge_cases(np.random.default_rng(seed))
+    for name, dtype in (("phmm_forward_f32", torch.float32), ("phmm_forward_f64", torch.float64)):
+        err = 0.0
+        for reads, haps, pairs, r_pad, h_pad in edge:
+            tb = P.as_device_batch(P.prepare_batch(reads, haps, pairs, r_pad=r_pad, h_pad=h_pad),
+                                   DEVICE)
+            err = max(err, max_abs_diff(torch, P.forward_raw(tb, dtype),
+                                        P.phmm_forward_plain(tb, dtype)))
+        log(f"{name} edge cases: {len(edge)} batches, {sum(len(e[2]) for e in edge)} testcases, "
+            f"r_pad {[e[3] for e in edge]}, max_abs_err {err}")
+        rec.check(name, err, "the edge cases")
+
     # 4. the main path at the dataset shape
     with tempfile.TemporaryDirectory() as tmp:
         tf = Path(tmp) / "testfile.txt"
@@ -999,21 +1080,32 @@ def phmm_phases(torch, port: Port, rec: Record, seed: int):
             seen[name]["plain_s"] += plain_ms * 1e-3
     log("main path vs plain, every output " + json.dumps(seen))
 
-    # the kernels' times on the main path's largest bucket of each pass
+    # every launch of the counted run timed again on its bucket's tensors;
+    # the kernels' figures are those of each pass's largest bucket
     for name, dtype, bkey, rkey in passes:
-        kb = max((kb for kb in kept if kb[bkey] is not None), key=lambda kb: len(kb[rkey]))
-        tb = kb[bkey]
-        ms, got = time_ms(torch, lambda: P.forward_raw(tb, dtype), 3)
-        rec.check(name, max_abs_diff(torch, got, torch.from_numpy(kb[rkey]).to(got.device)),
-                  f"a rerun on bucket {kb['bucket']}")
-        tb_np = {k: v.cpu().numpy() for k, v in tb.items()}
         itemsize, peak = (4, F32_OPS_PER_S) if dtype == torch.float32 else (8, F64_OPS_PER_S)
-        bms, by = bound(tb_np, itemsize, peak, n_tables)
-        row = {"shape": f"{len(kb[rkey])} cases, bucket {kb['bucket'][0]}x{kb['bucket'][1]}",
-               "ms": ms, "plain_ms": kb[rkey + "_plain_ms"],
-               "gcups": cells_of(tb_np) / (ms * 1e-3) / 1e9, "bound_ms": bms, "bound_by": by}
-        log(f"{name} on the main path's largest bucket " + json.dumps(row))
-        rec.kern[name].update(ms=ms, plain_ms=row["plain_ms"], bound_ms=bms, bound_by=by)
+        rows = []
+        for kb in kept:
+            if kb[bkey] is None:
+                continue
+            tb = kb[bkey]
+            ms, got = time_ms(torch, lambda: P.forward_raw(tb, dtype), 3)
+            rec.check(name, max_abs_diff(torch, got, torch.from_numpy(kb[rkey]).to(got.device)),
+                      f"a rerun on bucket {kb['bucket']}")
+            tb_np = {k: v.cpu().numpy() for k, v in tb.items()}
+            bms, by = bound(tb_np, itemsize, peak, n_tables)
+            row = {"bucket": f"{kb['bucket'][0]}x{kb['bucket'][1]}", "cases": len(kb[rkey]),
+                   "ms": ms, "plain_ms": kb[rkey + "_plain_ms"],
+                   "gcups": cells_of(tb_np) / (ms * 1e-3) / 1e9, "bound_ms": bms,
+                   "bound_by": by}
+            log(f"{name} bucket " + json.dumps(row))
+            rows.append(row)
+        log(f"{name} over the counted run's {len(rows)} launches " + json.dumps(
+            {"ms": sum(r["ms"] for r in rows), "bound_ms": sum(r["bound_ms"] for r in rows)}))
+        big = max(rows, key=lambda r: r["cases"])
+        log(f"{name} on the main path's largest bucket " + json.dumps(big))
+        rec.kern[name].update(ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+                              bound_by=big["bound_by"])
 
     # 16 seeded testcases against the port's oracle, exactly
     sel = np.random.default_rng(seed).choice(len(pairs), min(16, len(pairs)), replace=False)

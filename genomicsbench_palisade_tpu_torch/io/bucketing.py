@@ -1,8 +1,8 @@
 """Length bucketing: group testcases into a few padded shapes.
 
 Same buckets as genomicsbench_palisade_tpu/io/bucketing.py.  On the GPU a
-bucket bounds the padding of a batch (and so its scratch and its longest
-testcase), not the number of compiles.
+bucket bounds the padding of a batch (and so its longest testcase, and for
+PairHMM the kernel instance its r_pad picks), not the number of compiles.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-// CPU emulation of the CUDA features that csrc/bsw_extend.cu and
-// csrc/chain_dp.cu use, so that their device code compiles with g++ and
-// runs on the CPU in tests/test_torch_kernel_emulation.py.
+// CPU emulation of the CUDA features that csrc/bsw_extend.cu,
+// csrc/chain_dp.cu and csrc/phmm_forward.cu use, so that their device code
+// compiles with g++ and runs on the CPU in
+// tests/test_torch_kernel_emulation.py.
 //
 // A warp is 32 lanes run as fibers (ucontext) on one thread: a lane runs
 // until its next warp primitive (shuffle, vote, reduction, __syncwarp) and
@@ -152,8 +153,13 @@ inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
 inline int __ffs(unsigned v) { return __builtin_ffs(static_cast<int>(v)); }
 inline unsigned atomicOr(unsigned* a, unsigned v) { return __atomic_fetch_or(a, v, __ATOMIC_SEQ_CST); }
+// the round-to-nearest forms: separate roundings as long as the build does
+// not contract a*b+c (g++ -ffp-contract=off)
 inline double __ddiv_rn(double a, double b) { return a / b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 
 inline void emu_lane_main() {
   (*emu_warp.fn)();

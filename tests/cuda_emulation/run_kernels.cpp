@@ -1,8 +1,9 @@
-// Runs the device code of csrc/bsw_extend.cu (built with -DBSW) or
-// csrc/chain_dp.cu (the text before the source's first "}  // namespace",
-// included as KERNEL_PART) on the CPU under cuda_runtime.h's warp
-// emulation.  Reads the batch from a binary file written by
-// tests/test_torch_kernel_emulation.py and writes the kernel's `out`.
+// Runs the device code of csrc/bsw_extend.cu (built with -DBSW),
+// csrc/phmm_forward.cu (built with -DPHMM) or csrc/chain_dp.cu (the text
+// before the source's first "}  // namespace", included as KERNEL_PART) on
+// the CPU under cuda_runtime.h's warp emulation.  Reads the batch from a
+// binary file written by tests/test_torch_kernel_emulation.py and writes
+// the kernel's `out`.
 //
 //   run_kernels <in> <out>
 
@@ -14,7 +15,7 @@
 
 #include KERNEL_PART
 namespace {
-int32_t smem[1 << 16];  // chain_dp's extern __shared__ block
+alignas(16) int32_t smem[1 << 16];  // the kernel's extern __shared__ block
 }
 
 template <class T>
@@ -38,10 +39,85 @@ void run_bsw(const int8_t* codes, const int64_t* q_off, const int32_t* q_len, co
 }
 #endif
 
+#ifdef PHMM
+// one warp at a time, as block w of 32 threads: the groups of the warp
+// take the first slices of the shared carry
+template <class T, int L, int S>
+void run_phmm(const Batch& in, const Tables<T>& tab, T* carry, T* out) {
+  constexpr int G = 32 / L;
+  const int warps = (in.batch + G - 1) / G;
+  for (int w = 0; w < warps; ++w) {
+    emu_run_warp(w, 32, 0, [&] { phmm_forward_kernel<T, L, S>(in, tab, carry, out); });
+  }
+}
+
+// the instance csrc/phmm_forward.cu's launch picks for rp
+template <class T>
+void run_phmm_rp(const Batch& in, const Tables<T>& tab, T* carry, T* out) {
+  const int rows = in.rp - 1;
+  constexpr bool f = sizeof(T) == 4;
+  if (rows <= 64) {
+    if constexpr (f) run_phmm<T, PHMM_F32_LANES_64, PHMM_F32_ROWS_64>(in, tab, carry, out);
+    else run_phmm<T, PHMM_F64_LANES_64, PHMM_F64_ROWS_64>(in, tab, carry, out);
+  } else if (rows <= 128) {
+    if constexpr (f) run_phmm<T, PHMM_F32_LANES_128, PHMM_F32_ROWS_128>(in, tab, carry, out);
+    else run_phmm<T, PHMM_F64_LANES_128, PHMM_F64_ROWS_128>(in, tab, carry, out);
+  } else if (rows <= 256) {
+    if constexpr (f) run_phmm<T, PHMM_F32_LANES_256, PHMM_F32_ROWS_256>(in, tab, carry, out);
+    else run_phmm<T, PHMM_F64_LANES_256, PHMM_F64_ROWS_256>(in, tab, carry, out);
+  } else {
+    if constexpr (f) run_phmm<T, PHMM_F32_LANES_512, PHMM_F32_ROWS_512>(in, tab, carry, out);
+    else run_phmm<T, PHMM_F64_LANES_512, PHMM_F64_ROWS_512>(in, tab, carry, out);
+  }
+}
+
+// head: batch, rp, hp, global carry (0/1), table entries (ph2pr, m2m);
+// then the int8 planes, the lengths and the tables of T
+template <class T>
+std::vector<T> phmm_main(std::ifstream& f, const std::vector<int64_t>& head) {
+  const int batch = static_cast<int>(head[0]), rp = static_cast<int>(head[1]);
+  const int hp = static_cast<int>(head[2]);
+  const size_t nb = static_cast<size_t>(batch);
+  std::vector<int8_t> planes[6];
+  for (int p = 0; p < 5; ++p) planes[p] = read<int8_t>(f, nb * rp);  // rs_row q i d c
+  planes[5] = read<int8_t>(f, nb * hp);
+  const auto rslen = read<int32_t>(f, nb);
+  const auto haplen = read<int32_t>(f, nb);
+  const auto init_y = read<T>(f, static_cast<size_t>(hp) + 1);
+  const auto ph2pr = read<T>(f, static_cast<size_t>(head[4]));
+  const auto one_m = read<T>(f, static_cast<size_t>(head[4]));
+  const auto div3 = read<T>(f, static_cast<size_t>(head[4]));
+  const auto m2m = read<T>(f, static_cast<size_t>(head[5]));
+  const Batch in{planes[0].data(), planes[1].data(), planes[2].data(), planes[3].data(),
+                 planes[4].data(), planes[5].data(), rslen.data(), haplen.data(), batch, rp, hp};
+  const Tables<T> tab{init_y.data(), ph2pr.data(), one_m.data(), div3.data(), m2m.data()};
+  std::vector<T> carry(head[3] ? 3 * nb * hp : 0, T(-7));
+  std::vector<T> out(nb, T(-777));
+  run_phmm_rp<T>(in, tab, head[3] ? carry.data() : nullptr, out.data());
+  return out;
+}
+#endif
+
 int main(int argc, char** argv) {
   std::ifstream f(argv[1], std::ios::binary);
   std::vector<int32_t> out;
-#ifdef BSW
+#ifdef PHMM
+  {
+    const auto head = read<int64_t>(f, 7);  // f64, then phmm_main's head
+    const std::vector<int64_t> rest(head.begin() + 1, head.end());
+    std::ofstream po(argv[2], std::ios::binary);
+    if (head[0]) {
+      const auto res = phmm_main<double>(f, rest);
+      po.write(reinterpret_cast<const char*>(res.data()),
+               static_cast<std::streamsize>(res.size() * sizeof(double)));
+    } else {
+      const auto res = phmm_main<float>(f, rest);
+      po.write(reinterpret_cast<const char*>(res.data()),
+               static_cast<std::streamsize>(res.size() * sizeof(float)));
+    }
+    return 0;
+  }
+#elif defined(BSW)
   const auto head = read<int64_t>(f, 13);  // batch, codes, q_max, the 10 params
   const int batch = static_cast<int>(head[0]);
   const int q_max = static_cast<int>(head[2]);

@@ -68,7 +68,7 @@ def cuda():
 
 def _cases(seed, n, max_r, max_h):
     """Half the reads are noisy substrings of their hap, half random (with
-    N); lengths cover partial and whole 8-row stripes."""
+    N); lengths cover partial and whole lanes' rows."""
     rng = np.random.default_rng(seed)
     reads, haps, pairs = [], [], []
     for k in range(n):
@@ -99,6 +99,52 @@ def test_kernel_bit_equal_to_plain(cuda, dtype):
     want = P.phmm_forward_plain(tb, dtype)
     same = (got == want) | (torch.isnan(got) & torch.isnan(want))
     assert bool(same.all()), int((~same).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_phmm_edge_cases_kernel_equal_to_plain(cuda, dtype):
+    """chip_smoke.phmm_edge_cases, each batch at its r_pad (so on the
+    instance the wrapper picks for it, in one tile or more), bit for bit."""
+    kernel = phmm_cuda.KERNELS[dtype]
+    for reads, haps, pairs, rp, hp in chip_smoke.phmm_edge_cases(np.random.default_rng(0)):
+        tb = P.as_device_batch(P.prepare_batch(reads, haps, pairs, r_pad=rp, h_pad=hp), cuda)
+        before = kernel.launches
+        got = P.forward_raw(tb, dtype)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = P.phmm_forward_plain(tb, dtype)
+        assert bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all()), (rp, hp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_phmm_global_carry_kernel_equal_to_plain(cuda, dtype):
+    """Haps of 4,000-5,000 bases at up to 599 rows: a block's tile carry
+    would not fit in shared memory, so the wrapper hands the kernel a global
+    one.  The reads are their hap's substrings with 1% substituted, so the
+    float results stay finite."""
+    rng = np.random.default_rng(11)
+    reads, haps, pairs = [], [], []
+    for k in range(6):
+        hap = rng.integers(0, 4, int(rng.integers(4000, 5001)))
+        rl = int(rng.integers(300, 600))
+        s = int(rng.integers(0, len(hap) - rl + 1))
+        bases = hap[s : s + rl].copy()
+        mut = rng.random(rl) < 0.01
+        bases[mut] = rng.integers(0, 4, int(mut.sum()))
+        reads.append({"bases": bases, "q": rng.integers(6, 41, rl), "i": rng.integers(30, 46, rl),
+                      "d": rng.integers(30, 46, rl), "c": np.full(rl, 10)})
+        haps.append(hap)
+        pairs.append((k, k))
+    tb = P.as_device_batch(P.prepare_batch(reads, haps, pairs, r_pad=600, h_pad=5000), cuda)
+    kernel = phmm_cuda.KERNELS[dtype]
+    assert kernel.scratch_elems(6, 600, 5000) == 3 * 5000 * 6
+    assert kernel.scratch_elems(6, 513, 512) == 0
+    got = P.forward_raw(tb, dtype)
+    want = P.phmm_forward_plain(tb, dtype)
+    assert bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+    assert bool((want > 0).all() & torch.isfinite(want).all())
 
 
 @pytest.mark.cuda

@@ -1,16 +1,20 @@
-"""The device code of the port's warp kernels, csrc/bsw_extend.cu and
-csrc/chain_dp.cu, compiled with g++ and run on the CPU under a warp
-emulation (tests/cuda_emulation/: a warp's 32 lanes as fibers on one
-thread, every shuffle, vote and reduction a point where all 32 post and
-then read), against the plain versions.
+"""The device code of the port's warp kernels, csrc/bsw_extend.cu,
+csrc/chain_dp.cu and csrc/phmm_forward.cu, compiled with g++ and run on the
+CPU under a warp emulation (tests/cuda_emulation/: a warp's 32 lanes as
+fibers on one thread, every shuffle, vote and reduction a point where all
+32 post and then read), against the plain versions.
 
 The card is the only place the kernels run for real (tests/test_torch_cuda.py,
 chip_smoke.py); this holds their lane logic (the F chain's map scan, the
 row max's ballots, the band shrink, the max_skip walk, the mark bitmap, the
-register banks) to the plain versions on every CPU run.  The build uses
--fsanitize=undefined, so a signed overflow aborts the run.
+register banks, PairHMM's wavefront, virtual rows and tile carry) to the
+plain versions on every CPU run.  The build uses -fsanitize=undefined, so
+a signed overflow aborts the run.
 
-Tolerance: none.  Every value is int32.
+Tolerance: none.  bsw and chain compute in int32.  PairHMM rounds every
+multiply and add on its own in float or double, on the card (-fmad=false)
+and here (-ffp-contract=off, SSE arithmetic), in the order of the plain
+version and the oracle, so raw sums must be bit-equal.
 """
 
 import json
@@ -24,10 +28,13 @@ import pytest
 import torch
 
 from genomicsbench_palisade_tpu_torch.cli.bsw import EDGES
-from genomicsbench_palisade_tpu_torch.convert import bsw_batch_from_numpy, chain_batch_from_numpy
+from genomicsbench_palisade_tpu_torch.convert import (INT8_KEYS, INT32_KEYS, TABLE_KEYS,
+                                                      bsw_batch_from_numpy, chain_batch_from_numpy)
 from genomicsbench_palisade_tpu_torch.ops import bsw as W
 from genomicsbench_palisade_tpu_torch.ops import chain as C
+from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as WO
+from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as PO
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
@@ -48,13 +55,14 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """{"bsw", "chain"}: the emulated kernels' executables."""
+    """{"bsw", "chain", "phmm"}: the emulated kernels' executables."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the emulated kernels")
     out = tmp_path_factory.mktemp("emulated")
     exes = {}
-    for name, src, defines in (("bsw", "bsw_extend.cu", ["-DBSW"]), ("chain", "chain_dp.cu", [])):
+    for name, src, defines in (("bsw", "bsw_extend.cu", ["-DBSW"]), ("chain", "chain_dp.cu", []),
+                               ("phmm", "phmm_forward.cu", ["-DPHMM", "-ffp-contract=off"])):
         text = (CSRC / src).read_text()
         part = out / f"{name}_device.inc"
         part.write_text(text[: text.index(MARK) + len(MARK)])
@@ -127,3 +135,93 @@ def test_chain_emulated_equals_plain_on_edge_calls(emulated, tmp_path):
     stats = {}
     assert torch.equal(got, C.chain_dp_plain(tb, params, stats=stats))
     assert stats["breaks"] > 0
+
+
+PHMM_DTYPES = {"f32": (torch.float32, np.float32), "f64": (torch.float64, np.float64)}
+
+
+def _phmm(exe, tmp_path, tb, dtype, global_carry=False):
+    """Raw M+X sums [B] of the emulated kernel, on the instance the wrapper
+    picks for the batch's r_pad; `global_carry` hands it a global carry
+    buffer instead of its shared one."""
+    np_dtype = PHMM_DTYPES["f64" if dtype == torch.float64 else "f32"][1]
+    b, rp = tb["rs_row"].shape
+    hp = tb["hap"].shape[1]
+    tabs = P.tables(np_dtype)
+    head = np.array([int(dtype == torch.float64), b, rp, hp, int(global_carry),
+                     tabs["ph2pr"].size, tabs["m2m"].size], np.int64)
+    src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
+    with open(src, "wb") as f:
+        f.write(head.tobytes())
+        for k in INT8_KEYS + INT32_KEYS:
+            f.write(np.ascontiguousarray(tb[k].numpy()).tobytes())
+        f.write(P.init_y_table(np_dtype, hp).tobytes())
+        for k in TABLE_KEYS:
+            f.write(np.ascontiguousarray(tabs[k], dtype=np_dtype).tobytes())
+    proc = subprocess.run([str(exe), str(src), str(dst)], capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return torch.from_numpy(np.fromfile(dst, np_dtype))
+
+
+def _bit_equal(got, want):
+    return bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_phmm_emulated_equals_plain_on_edge_cases(emulated, tmp_path, dtype):
+    """chip_smoke.phmm_edge_cases, each batch at its r_pad (the CLI's four
+    row buckets and 640), and the batches of 512 rows and more (those that
+    take more than one tile on some instance) again with the carry in
+    global memory."""
+    dt = PHMM_DTYPES[dtype][0]
+    for reads, haps, pairs, rp, hp in chip_smoke.phmm_edge_cases(np.random.default_rng(0)):
+        tb = P.as_device_batch(P.prepare_batch(reads, haps, pairs, r_pad=rp, h_pad=hp), "cpu")
+        want = P.phmm_forward_plain(tb, dt)
+        assert _bit_equal(_phmm(emulated["phmm"], tmp_path, tb, dt), want), (rp, hp)
+        if rp >= 512:
+            assert _bit_equal(_phmm(emulated["phmm"], tmp_path, tb, dt, True), want), (rp, hp)
+
+
+@pytest.mark.parametrize("rp", [64, 128, 256, 512, 700])
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_phmm_emulated_equals_plain_seeded(emulated, tmp_path, rp, dtype):
+    """A seeded batch on each row edge's instance (rp 700: more than one
+    tile on every instance): reads of 1 to rp-1 bases, half noisy
+    substrings of their hap, haps of up to 320 bases with N, quals 0-126."""
+    rng = np.random.default_rng(rp)
+    reads, haps, pairs = [], [], []
+    for k in range(21):
+        rl = int(rng.integers(1, rp))
+        hl = int(rng.integers(1, 321))
+        hap = rng.integers(0, 5, hl)
+        if k % 2 and rl <= hl:
+            s = int(rng.integers(0, hl - rl + 1))
+            bases = hap[s : s + rl].copy()
+        else:
+            bases = rng.integers(0, 5, rl)
+        reads.append({"bases": bases, **{q: rng.integers(0, 127, rl) for q in "qidc"}})
+        haps.append(hap)
+        pairs.append((k, k))
+    tb = P.as_device_batch(P.prepare_batch(reads, haps, pairs, r_pad=rp, h_pad=320), "cpu")
+    dt = PHMM_DTYPES[dtype][0]
+    assert _bit_equal(_phmm(emulated["phmm"], tmp_path, tb, dt), P.phmm_forward_plain(tb, dt))
+
+
+def test_phmm_emulated_goldens_equal_oracle(emulated, tmp_path, fixtures_dir):
+    """The 40 GKL goldens: both instances' raw sums exactly the port's
+    oracle's (compute_full_prob in float and in double)."""
+    cases = json.load(open(fixtures_dir / "phmm_golden.json"))
+    reads, haps, pairs = [], [], []
+    for k, case in enumerate(cases):
+        reads.append({"bases": PO.encode_bases(case["rs"]),
+                      **{key: np.array([ord(c) for c in case[key]]) for key in "qidc"}})
+        haps.append(PO.encode_bases(case["hap"]))
+        pairs.append((k, k))
+    assert len(cases) == 40
+    tb = P.as_device_batch(P.prepare_batch(reads, haps, pairs), "cpu")
+    for dt, np_dtype in PHMM_DTYPES.values():
+        want = np.array([PO.compute_full_prob(r["bases"], h, r["q"], r["i"], r["d"], r["c"],
+                                              np_dtype) for r, h in zip(reads, haps)])
+        got = _phmm(emulated["phmm"], tmp_path, tb, dt).numpy()
+        np.testing.assert_array_equal(got, want.astype(np_dtype))
