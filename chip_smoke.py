@@ -80,10 +80,16 @@ non-zero and prints no result):
   9. the abea kernels (fill and walk) against their plain versions on the
      card, bit for bit, on 128 reads of 1-4 kb made by the generator of
      tools/abea_scale_bench.py (synth_read, rng seed 17), with kernel and
-     plain times, band cells/s and the bounds; then the kernels alone on
-     that tool's long-read workload (16 reads of 10-50 kb and one of 100
-     kb, seed 17), which must all align; and the host's event detection
-     on raw signals of those lengths (golden recipe, seed 17);
+     plain times, band cells/s and the bounds; then on the batches of
+     `abea_edge_reads` (ne or nk of 1, reads shorter than the band, stay-
+     and skip-heavy reads, ties, sums that round, a read of 13 windows, a
+     batch of one read; seeded from --seed) and the first of them blocked
+     (`abea_blocked`: seed 0, clamped offsets), tolerance 0; then the
+     kernels alone on that tool's long-read workload (16 reads of 10-50 kb
+     and one of 100 kb, seed 17), which must all align; and the host's
+     event detection on raw signals of those lengths (golden recipe, seed
+     17); each kernel row gives the longest read's bands and walk steps
+     and the ns a band and a step;
  10. the abea main path, cell abea-512: one f5c batch of 512 reads of
      1,000-13,450 bases (3,698,945 bases, the reference's `-B 3.7M`), raw
      signals by the golden recipe of tests/generate_fixtures.py (seeded
@@ -142,9 +148,12 @@ non-zero and prints no result):
      the whole [128, 4096], with times and the bound; the prod side
      (`chain_dp` on the same anchors, windows 64 back) timed and held to
      the plain chain version, which counts the predecessors it visits;
- 15. each kernel's device seconds over one main-path run (the profiles of
-     phases 4, 6, 8 and 10), a `kernels` JSON line, the card's name and
-     power limit, and the last line {"ok": true, "device": {...}}.
+ 15. the abea chain cost: per abea cell the ns and SM cycles (at the
+     median clock of phases 13-14) a band of the fill and a step of the
+     walk, and the chain floors; each kernel's device seconds over one
+     main-path run (the profiles of phases 4, 6, 8 and 10), a `kernels`
+     JSON line, the card's name and power limit, and the last line
+     {"ok": true, "device": {...}}.
 Every measurement is printed as it is taken.  Needs one CUDA card; without
 one it exits 1.  The bsw dataset (~3.8 GB), the chain dump (~236 MB), the
 abea signals (~118 MB) and the fmi reads and index npz (~0.5 GB) are
@@ -236,6 +245,17 @@ ABEA_FILL_F64_OPS = 12
 # csrc/abea_walk.cu a step: the emission's 6 f32; one conversion and one addition in f64
 ABEA_WALK_F32_OPS = 6
 ABEA_WALK_F64_OPS = 2
+# The fewest dependent SM cycles a band (fill) or a step (walk) of the two
+# designs can take, from the chain in their sources and Hopper's usual
+# latencies (not measured here): the fill's band is a cell's conversion to
+# double (~8), the halo shuffle (~23), two dependent f64 additions (~8
+# each), a conversion to float (~8), two compare-and-selects (~8 each) and
+# the move's uniform select and branch (~14): ~85; the walk's step is a
+# shared load of the trace byte (~30), the move's compare (~4) and the next
+# offset's subtract and clamp (~12): ~46.  Times the longest read's bands
+# or steps, they give each kernel's chain floor.
+ABEA_FILL_CHAIN_CYCLES = 85
+ABEA_WALK_CHAIN_CYCLES = 46
 OCC_SOURCE = "genomicsbench_palisade_tpu_torch/csrc/occ_gather.cu"
 OCC_ROW_REPLACES = "tools/occ_gather_experiment.py:42"
 OCC_TILE_REPLACES = "tools/occ_gather_experiment.py:111"
@@ -581,6 +601,134 @@ def synth_read(rng, model, length):
     means = (np.repeat(model["level_mean"][ranks], counts)
              + rng.normal(0, 0.4, int(counts.sum())))
     return seq, means.astype(np.float32)
+
+
+def kmer_rank(kmer: str) -> int:
+    """The rank of a 6-mer of ACGT: the first base is the high bits."""
+    return int(sum("ACGT".index(ch) << (2 * (5 - j)) for j, ch in enumerate(kmer)))
+
+
+def abea_events(rng, model, seq, counts, noise=0.4, scale=1.0, shift=0.0):
+    """Event means for `seq`: counts[i] events at k-mer i's scaled level
+    (scale * mean + shift, f32) plus N(0, noise) (none when noise is 0)."""
+    ranks = np.array([kmer_rank(seq[i : i + 6]) for i in range(len(seq) - 5)], np.int64)
+    level = np.float32(scale) * model["level_mean"][ranks] + np.float32(shift)
+    means = np.repeat(level, counts).astype(np.float64)
+    if noise:
+        means = means + rng.normal(0, noise, len(means))
+    return means.astype(np.float32)
+
+
+def abea_edge_reads(rng):
+    """(model, batches) aimed at csrc/abea_fill.cu (a warp a read, 4 cells
+    a lane, the band's ends by shuffles) and csrc/abea_walk.cu (windows of
+    128 band rows in shared memory); each batch (seqs, events, scales,
+    shifts).  The first batch holds, read by read:
+      0-2 nk 1 with 1 and 7 events, and nk 50 with 1 event;
+      3-4 reads shorter than the band (30 and 60 k-mers, 1-2 events each);
+      5 stay-heavy: 4-8 events a k-mer;
+      6 skip-heavy: an event for every third k-mer;
+      7 a run of 70 k-mers with no event inside 1-2 events a k-mer (the
+        band does not follow a skip that long: QC drops the read);
+      8 295 k-mers and 20 events: once the events run out the band slides
+        onto the last k-mer's column (so no input of finite events leaves
+        that column all -inf: `abea_blocked` makes one), and the walk's
+        longest skip run passes MAX_GAP (50);
+      9 a homopolymer with one event a k-mer exactly at its level (ne = nk,
+        so lp_step and lp_stay round alike): exact D/U/L score ties;
+     10 a repeat of 3 bases, events at their levels with no noise: ties
+        across bands;
+     11 700 bases, 1-2 events a k-mer: 13 windows, D moves across window
+        edges;
+     12-15 reads of 120-400 bases, scaled 0.9-1.1 and shifted -3..3, with
+        noise 0.4-2.0;
+     16-20 30 k-mers, one event each at its level, then 40 more at the last
+        k-mer at a level (-2 to 2 ulps off the solution) where a stay costs
+        what the trim term gains: ties between seed scores;
+     21 80 k-mers, one event each; in every other run of 5 k-mers the
+        model log-stdv is the emission's constant (the model is changed at
+        their ranks) and the events 1-3 ulps off their levels: runs of
+        emissions of ~1e-9 with full mantissas between runs of ones of
+        ~-1, so that the double sum rounds and only the walk order gives
+        its bits;
+     22 100 bases, one event a k-mer, the fifth one 1e-12: outside the
+        range of the fill's fast division, so the read takes IEEE's own;
+    a batch of more than one block at every size; the second batch is one
+    read of 300 bases.  Most bands past the 50th of the short reads take
+    the both-ends -inf parity rule."""
+    model = synth_model(rng)
+    acgt = np.array(list("ACGT"))
+    seq_of = lambda n: "".join(acgt[rng.integers(0, 4, n)])  # noqa: E731
+    reads = []  # (seq, events, scale, shift)
+
+    def add(seq, counts, noise=0.4, scale=1.0, shift=0.0):
+        reads.append((seq, abea_events(rng, model, seq, counts, noise, scale, shift),
+                      scale, shift))
+
+    add(seq_of(6), [1])
+    add(seq_of(6), [7])
+    s = seq_of(55)
+    reads.append((s, abea_events(rng, model, s, np.eye(1, 50, 20, np.int64)[0]), 1.0, 0.0))
+    for nk in (30, 60):
+        add(seq_of(nk + 5), rng.integers(1, 3, nk))
+    add(seq_of(85), rng.integers(4, 9, 80))
+    add(seq_of(405), (np.arange(400) % 3 == 0).astype(np.int64))
+    counts = rng.integers(1, 3, 300)
+    counts[120:190] = 0
+    add(seq_of(305), counts)
+    s = seq_of(300)
+    reads.append((s, abea_events(rng, model, s, rng.integers(1, 3, 295))[:20], 1.0, 0.0))
+    add("A" * 70, np.ones(65, np.int64), noise=0)
+    add("ACG" * 40, np.ones(115, np.int64), noise=0)
+    add(seq_of(700), rng.integers(1, 3, 695))
+    for n in (120, 210, 320, 400):
+        add(seq_of(n), rng.integers(1, 3, n - 5), float(rng.uniform(0.4, 2.0)),
+            float(np.float32(rng.uniform(0.9, 1.1))), float(np.float32(rng.uniform(-3, 3))))
+    # seed ties: staying at the last k-mer emits lp_trim - lp_stay
+    s = seq_of(35)
+    head = abea_events(rng, model, s, np.ones(30, np.int64), noise=0)[:-1]
+    ne = len(head) + 40
+    lp_stay = np.log(1 - 1 / (ne / 30 + 1))
+    last = kmer_rank(s[-6:])
+    a = np.sqrt(2 * ((np.float32(-0.918938) - model["level_log_stdv"][last])
+                     - (np.log(0.01) - lp_stay)))
+    level = np.float32(model["level_mean"][last] + a * model["level_stdv"][last])
+    for d in range(-2, 3):
+        x = level
+        for _ in range(abs(d)):
+            x = np.nextafter(x, np.float32(np.inf if d > 0 else -np.inf))
+        reads.append((s, np.concatenate([head, np.full(40, x, np.float32)]), 1.0, 0.0))
+    # emissions of ~1e-10 beside ones of ~-1: the double sum rounds
+    s = seq_of(85)
+    ranks = [kmer_rank(s[i : i + 6]) for i in range(80)]
+    tiny = [i for i in range(80) if i // 5 % 2]
+    model["level_log_stdv"][[ranks[i] for i in tiny]] = np.float32(-0.918938)
+    model["level_stdv"][[ranks[i] for i in tiny]] = np.float32(0.37)
+    ev = abea_events(rng, model, s, np.ones(80, np.int64))
+    for i in tiny:
+        x = model["level_mean"][ranks[i]]
+        for _ in range(int(rng.integers(1, 4))):
+            x = np.nextafter(x, np.float32(np.inf))
+        ev[i] = x
+    reads.append((s, ev, 1.0, 0.0))
+    s = seq_of(100)
+    ev = abea_events(rng, model, s, np.ones(95, np.int64))
+    ev[4] = np.float32(1e-12)
+    reads.append((s, ev, 1.0, 0.0))
+    one = seq_of(300)
+    batches = [tuple(list(v) for v in zip(*reads)),
+               ([one], [abea_events(rng, model, one, rng.integers(1, 3, 295))], [1.0], [0.0])]
+    return model, batches
+
+
+def abea_blocked(batch_np) -> dict:
+    """A copy of a flat abea batch (ops.abea.prepare_batch's) whose four
+    transition penalties are -inf, which the host never makes: every band
+    cell but the origin is -inf, the last k-mer's column too, so the seed
+    is 0 and the walk clamps its offsets to the band's edge."""
+    out = {k: v.copy() for k, v in batch_np.items()}
+    out["lp"][:] = -np.inf
+    return out
 
 
 def golden_pore_levels() -> np.ndarray:
@@ -933,6 +1081,8 @@ class Record:
     def __init__(self, names):
         self.kern = {n: {"max_abs_err": 0.0} for n in names}
         self.device_s = {}  # kernel: its device seconds over one main-path run
+        self.sm_mhz = []  # the median SM clock of each sampled phase (13-14)
+        self.abea_chain = []  # the abea kernels' chain rows, printed at the end
 
     def profiled(self, cell, prof):
         """Keep each kernel's summed device time from a main path's profile."""
@@ -1527,19 +1677,45 @@ def abea_check(torch, port, rec, batch, fill, walk, where):
     return pf_ms, pw_ms
 
 
-def abea_row(torch, port, batch_np, batch, fill_ms, fill, walk_ms, walk) -> dict:
+def abea_row(torch, port, rec, batch_np, batch, fill_ms, fill, walk_ms, walk, cell) -> dict:
     """The kernels' numbers on one batch: bands, valid cells, walk steps,
-    rates, bounds and the reads that align."""
+    rates, bounds, the reads that align, and the chain: the longest read's
+    bands and the longest walk's steps, ns a band and a step (their cycles
+    are printed at the end, with the clock phases 13-14 sample)."""
     walk_np = {k: v.cpu().numpy() for k, v in walk.items()}
     cells, steps, b = abea_cells(torch, batch, fill), int(walk_np["n"].sum()), len(batch_np["ne"])
     fb, fby = abea_fill_bound(batch, cells)
     wb, wby = abea_walk_bound(b, steps)
+    bands_max = int((batch_np["ne"].astype(np.int64) + batch_np["nk"]).max()) + 2
+    steps_max = int(walk_np["n"].max())
+    rec.abea_chain.append({"cell": cell, "fill_ms": fill_ms, "bands_max_read": bands_max,
+                           "walk_ms": walk_ms, "steps_max_read": steps_max})
     return {"reads": b, "events": int(batch_np["ne"].sum()), "kmers": int(batch_np["nk"].sum()),
-            "bands": port.A.n_rows(batch), "bands_max_read": int((batch_np["ne"] + batch_np["nk"]).max()) + 2,
+            "bands": port.A.n_rows(batch), "bands_max_read": bands_max, "steps_max_read": steps_max,
             "cells": cells, "walk_steps": steps, "fill_ms": fill_ms, "walk_ms": walk_ms,
+            "fill_ns_per_band": fill_ms * 1e6 / bands_max, "walk_ns_per_step": walk_ms * 1e6 / steps_max,
             "cells_per_s": cells / (fill_ms * 1e-3), "fill_bound_ms": fb, "fill_bound_by": fby,
             "walk_bound_ms": wb, "walk_bound_by": wby,
             "aligned": sum(1 for r in port.A.decode(batch_np["band_off"], walk_np) if r)}
+
+
+def abea_chain_lines(rec):
+    """Per abea row: ns and SM cycles a band and a step at the median clock
+    of phases 13-14, and the chain floor (the longest read's bands or steps
+    times ABEA_FILL_CHAIN_CYCLES or ABEA_WALK_CHAIN_CYCLES)."""
+    mhz = float(np.median(rec.sm_mhz)) if rec.sm_mhz else None
+    for row in rec.abea_chain:
+        out = {"cell": row["cell"], "sm_mhz": mhz if mhz else "not sampled"}
+        for kern, count, cyc in (("fill", "bands_max_read", ABEA_FILL_CHAIN_CYCLES),
+                                 ("walk", "steps_max_read", ABEA_WALK_CHAIN_CYCLES)):
+            ns = row[f"{kern}_ms"] * 1e6 / row[count]
+            out.update({f"{kern}_ms": row[f"{kern}_ms"], count: row[count],
+                        f"{kern}_ns_each": ns,
+                        f"{kern}_cycles_each": ns * mhz / 1e3 if mhz else "not sampled",
+                        f"{kern}_chain_cycles_each": cyc,
+                        f"{kern}_chain_floor_ms": (row[count] * cyc / (mhz * 1e3)) if mhz
+                        else "not sampled"})
+        log("abea chain cost " + json.dumps(out))
 
 
 def abea_phases(torch, port: Port, rec: Record, seed: int):
@@ -1557,11 +1733,26 @@ def abea_phases(torch, port: Port, rec: Record, seed: int):
     fill_ms, fill, walk_ms, walk = abea_time(torch, port, tb)
     pf_ms, pw_ms = abea_check(torch, port, rec, tb, fill, walk, "128 reads of 1-4 kb")
     row = {"shape": f"{n_reads} reads of {lo_len}-{hi_len} bases",
-           **abea_row(torch, port, batch_np, tb, fill_ms, fill, walk_ms, walk),
+           **abea_row(torch, port, rec, batch_np, tb, fill_ms, fill, walk_ms, walk,
+                      "abea-bench-128"),
            "plain_fill_ms": pf_ms, "plain_walk_ms": pw_ms, "max_abs_err": 0.0}
     log("abea kernels vs plain " + json.dumps(row))
     if row["aligned"] != n_reads:
         fail(f"abea: {row['aligned']} of the {n_reads} bench reads aligned")
+
+    # 9. both kernels on the edge reads, and on their first batch blocked
+    t0 = time.perf_counter()
+    emodel, ebatches = abea_edge_reads(np.random.default_rng(seed))
+    flat = [A.prepare_batch(seqs, evs, emodel, scales, shifts)[0]
+            for seqs, evs, scales, shifts in ebatches]
+    flat.append(abea_blocked(flat[0]))
+    for k, batch_np in enumerate(flat):
+        tb = port.abea_batch_from_numpy(batch_np, DEVICE)
+        fill = A.abea_fill(tb)
+        abea_check(torch, port, rec, tb, fill, A.abea_walk(tb, fill), f"edge batch {k}")
+    log("abea edge reads " + json.dumps(
+        {"batches": len(flat), "reads": [len(b["ne"]) for b in flat], "max_abs_err": 0.0,
+         "seconds": time.perf_counter() - t0}))
 
     # 9. the kernels alone on the long-read workload: 16 reads of 10-50 kb, one of 100 kb
     rng = np.random.default_rng(ABEA_SEED)
@@ -1573,7 +1764,8 @@ def abea_phases(torch, port: Port, rec: Record, seed: int):
                                   [1.0] * len(reads), [0.0] * len(reads))
     tb = port.abea_batch_from_numpy(batch_np, DEVICE)
     row = {"shape": f"{n_long} reads of {lmin}-{lmax} bases and one of {l100}",
-           **abea_row(torch, port, batch_np, tb, *abea_time(torch, port, tb))}
+           **abea_row(torch, port, rec, batch_np, tb, *abea_time(torch, port, tb),
+                      "abea-long-17")}
     log("abea kernels on long reads " + json.dumps(row))
     if row["aligned"] != len(reads):
         fail(f"abea: {row['aligned']} of the {len(reads)} long reads aligned")
@@ -1721,8 +1913,8 @@ def abea_phases(torch, port: Port, rec: Record, seed: int):
     rec.check("abea_walk", max(max_abs_diff(torch, walk2[k], v) for k, v in walk.items()),
               "a rerun of the main path's launch")
     batch_np = {k: v.cpu().numpy() for k, v in batch.items()}
-    row = {"shape": "abea-512's launch", **abea_row(torch, port, batch_np, batch, fill_ms, fill2,
-                                                     walk_ms, walk2),
+    row = {"shape": "abea-512's launch", **abea_row(torch, port, rec, batch_np, batch, fill_ms,
+                                                     fill2, walk_ms, walk2, "abea-512"),
            "plain_fill_ms": pf_ms, "plain_walk_ms": pw_ms}
     log("abea kernels on the main path's launch " + json.dumps(row))
     rec.kern["abea_fill"].update(ms=fill_ms, plain_ms=pf_ms, bound_ms=row["fill_bound_ms"],
@@ -2032,6 +2224,8 @@ def bsw_roofline_phase(torch, port: Port, rec: Record, seed: int):
         launches = port.launches()
     log("bsw-roofline-8192 tool " + json.dumps({**res, "launches": launches,
                                                 "clock_min_median_max": clock.summary()}))
+    if clock.rows:
+        rec.sm_mhz.append(clock.summary()["sm_mhz"][1])
     rec.launched(launches, ("bsw_stripped",))
     if launches["bsw_extend"] <= 0:
         fail("bsw_roofline: the prod side did not launch bsw_extend")
@@ -2104,6 +2298,8 @@ def chain_roofline_phase(torch, port: Port, rec: Record):
         launches = port.launches()
     log("chain-roofline-128x4096 tool " + json.dumps({**res, "launches": launches,
                                                       "clock_min_median_max": clock.summary()}))
+    if clock.rows:
+        rec.sm_mhz.append(clock.summary()["sm_mhz"][1])
     rec.launched(launches, ("chain_micro",))
     if launches["chain_dp"] <= 0:
         fail("chain_roofline: the prod side did not launch chain_dp")
@@ -2199,6 +2395,7 @@ def main(argv=None) -> int:
     abea_phases(torch, port, rec, args.seed)
     bsw_roofline_phase(torch, port, rec, args.seed)
     chain_roofline_phase(torch, port, rec)
+    abea_chain_lines(rec)
 
     # 15. the kernels line, the card, the last line
     where = {"phmm_forward_f32": (SOURCE, REPLACES), "phmm_forward_f64": (SOURCE, REPLACES),

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import default_device
 from ..io.fastq import read_sequences
 from .fmi_index import CP_SHIFT, DeviceFmIndex
 
@@ -54,8 +55,9 @@ def pack_fasta(path: str, ambig_seed: int = 11):
     return np.concatenate(parts), names, np.asarray(lengths, np.int64)
 
 
-def suffix_array(codes, device="cpu") -> torch.Tensor:
-    """Suffix array by prefix doubling, O(n log^2 n), on `device`.
+def suffix_array(codes, device=None) -> torch.Tensor:
+    """Suffix array by prefix doubling, O(n log^2 n), on `device` (CUDA
+    unless given; without a GPU pass device="cpu").
 
     codes: base codes 0..3 (numpy or a tensor).  Returns int64 positions of
     the sorted suffixes of the text WITHOUT a sentinel (like saisxx over the
@@ -63,7 +65,7 @@ def suffix_array(codes, device="cpu") -> torch.Tensor:
     round sorts the pairs (rank[i], rank[i+k]) as one int64 key
     rank[i] * M + rank[i+k] + 1, with rank[i+k] = -1 past the end; M
     exceeds every rank + 1, and M * M < 2**63 up to n ~ 3e9."""
-    rank = torch.as_tensor(codes).to(device=device, dtype=torch.int64)
+    rank = torch.as_tensor(codes).to(device=default_device(device), dtype=torch.int64)
     n = rank.numel()
     sa = torch.argsort(rank, stable=True)
     mult = max(n, 4) + 1
@@ -87,11 +89,13 @@ def suffix_array(codes, device="cpu") -> torch.Tensor:
     return sa
 
 
-def build_arrays(forward_codes, sa_compression: bool = False, device="cpu") -> DeviceFmIndex:
-    """Full fwd+revcomp FM index with SA sample arrays, built on `device`.
+def build_arrays(forward_codes, sa_compression: bool = False, device=None) -> DeviceFmIndex:
+    """Full fwd+revcomp FM index with SA sample arrays, built on `device`
+    (CUDA unless given; without a GPU pass device="cpu").
 
     sa_compression=True keeps every 8th SA entry (SA_COMPX=3, the
     reference's compressed mode).  The result is host (numpy) arrays."""
+    device = default_device(device)
     fwd = torch.as_tensor(np.asarray(forward_codes, dtype=np.uint8)).to(device)
     full = torch.cat([fwd, 3 - fwd.flip(0)])
     del fwd

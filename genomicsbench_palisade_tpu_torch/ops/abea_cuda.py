@@ -8,6 +8,9 @@ without synchronising, raises if the launch was refused, and counts its
 launches in `launches`.  The libraries are built at the first call, never
 at import.  The kernels trust the batch's offsets and counts (reads with
 ne >= 1 and nk >= 1, band rows as ops.abea.prepare_batch lays them out).
+The walk copies whole blocks of trace rows and bll_e with 16-byte copies,
+so it refuses a trace or bll_e that does not start on a 16-byte boundary
+(a fresh tensor always does).
 """
 
 from __future__ import annotations
@@ -49,12 +52,13 @@ def _order(batch):
 
 
 class AbeaFillKernel(CudaKernel):
-    """The band fill: trace, bll_e, last_val and seed (ops/abea.py)."""
+    """The band fill: trace, bll_e, last_val and seed (ops/abea.py).
+    `defines` build a variant (tools/abea_fill_clock.py's)."""
 
-    def __init__(self):
+    def __init__(self, defines=()):
         super().__init__("abea_fill", FILL_SOURCE,
                          [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_void_p],
-                         "abea_error_string")
+                         "abea_error_string", defines)
 
     def __call__(self, batch) -> dict:
         dev, b, rows = check_batch(self.name, batch)
@@ -77,7 +81,7 @@ class AbeaWalkKernel(CudaKernel):
 
     def __init__(self):
         super().__init__("abea_walk", WALK_SOURCE,
-                         [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_void_p],
+                         [ctypes.c_void_p] * 17 + [ctypes.c_int, ctypes.c_void_p],
                          "abea_error_string")
 
     def __call__(self, batch, fill) -> dict:
@@ -85,6 +89,9 @@ class AbeaWalkKernel(CudaKernel):
         want = {"trace": (rows, BANDWIDTH), "bll_e": (rows,), "seed": (b,)}
         for k, dtype in self.FILL_DTYPES.items():
             check_tensor(self.name, k, fill[k], dev, dtype, want[k])
+        for k in ("trace", "bll_e"):
+            if fill[k].data_ptr() % 16:
+                raise ValueError(f"{self.name}: {k} does not start on a 16-byte boundary")
         out = {"pairs": torch.zeros((rows, 2), dtype=torch.int32, device=dev),
                "n": torch.empty(b, dtype=torch.int32, device=dev),
                "max_gap": torch.empty(b, dtype=torch.int32, device=dev),
@@ -94,7 +101,7 @@ class AbeaWalkKernel(CudaKernel):
         order = _order(batch)
         self.launch(dev, *(fill[k].data_ptr() for k in self.FILL_DTYPES),
                      *(batch[k].data_ptr() for k in ("ev", "gm", "stdv", "lstdv", "ev_off",
-                                                     "k_off", "band_off", "nk")),
+                                                     "k_off", "band_off", "ne", "nk")),
                      order.data_ptr(),
                      *(out[k].data_ptr() for k in ("pairs", "n", "max_gap", "sum_em")), b)
         return out

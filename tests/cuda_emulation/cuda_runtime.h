@@ -1,7 +1,8 @@
 // CPU emulation of the CUDA features that csrc/bsw_extend.cu,
-// csrc/chain_dp.cu and csrc/phmm_forward.cu use, so that their device code
-// compiles with g++ and runs on the CPU in
-// tests/test_torch_kernel_emulation.py.
+// csrc/chain_dp.cu, csrc/phmm_forward.cu, csrc/abea_fill.cu and
+// csrc/abea_walk.cu use, so that their device code compiles with g++ and
+// runs on the CPU in tests/test_torch_kernel_emulation.py (cuda_pipeline.h
+// and math_constants.h beside this file stand in for the toolkit's).
 //
 // A warp is 32 lanes run as fibers (ucontext) on one thread: a lane runs
 // until its next warp primitive (shuffle, vote, reduction, __syncwarp) and
@@ -17,6 +18,7 @@
 
 #include <algorithm>
 #include <climits>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -36,6 +38,11 @@ using std::min;
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
+
+struct alignas(8) int2 {
+  int x, y;
+};
+inline int2 make_int2(int x, int y) { return int2{x, y}; }
 
 struct EmuDim {
   unsigned x = 0;
@@ -104,6 +111,13 @@ inline T __shfl_up_sync(unsigned mask, T v, unsigned d, int width = 32) {
 }
 
 template <class T>
+inline T __shfl_down_sync(unsigned mask, T v, unsigned d, int width = 32) {
+  const int lane = emu_lane();
+  const int from = (lane & (width - 1)) + static_cast<int>(d) < width ? lane + static_cast<int>(d) : lane;
+  return emu_exchange<T>(mask, emu_bits(v), [&](uint64_t* s) { return emu_value<T>(s[from]); });
+}
+
+template <class T>
 inline T __shfl_xor_sync(unsigned mask, T v, int d, int width = 32) {
   const int lane = emu_lane();
   int from = lane ^ d;
@@ -120,6 +134,7 @@ inline unsigned __ballot_sync(unsigned mask, int p) {
 }
 
 inline int __any_sync(unsigned mask, int p) { return __ballot_sync(mask, p) != 0; }
+inline int __all_sync(unsigned mask, int p) { return __ballot_sync(mask, p) == 0xffffffffu; }
 
 inline int __reduce_max_sync(unsigned mask, int v) {
   return emu_exchange<int>(mask, emu_bits(v), [](uint64_t* s) {
@@ -156,6 +171,10 @@ inline unsigned atomicOr(unsigned* a, unsigned v) { return __atomic_fetch_or(a, 
 // the round-to-nearest forms: separate roundings as long as the build does
 // not contract a*b+c (g++ -ffp-contract=off)
 inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __double2float_rn(double a) { return static_cast<float>(a); }
 inline double __dadd_rn(double a, double b) { return a + b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }

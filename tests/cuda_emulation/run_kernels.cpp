@@ -1,9 +1,10 @@
 // Runs the device code of csrc/bsw_extend.cu (built with -DBSW),
-// csrc/phmm_forward.cu (built with -DPHMM) or csrc/chain_dp.cu (the text
-// before the source's first "}  // namespace", included as KERNEL_PART) on
-// the CPU under cuda_runtime.h's warp emulation.  Reads the batch from a
-// binary file written by tests/test_torch_kernel_emulation.py and writes
-// the kernel's `out`.
+// csrc/phmm_forward.cu (-DPHMM), csrc/abea_fill.cu (-DABEA_FILL),
+// csrc/abea_walk.cu (-DABEA_WALK) or csrc/chain_dp.cu (the text before the
+// source's first "}  // namespace", included as KERNEL_PART) on the CPU
+// under cuda_runtime.h's warp emulation.  Reads the batch from a binary
+// file written by tests/test_torch_kernel_emulation.py and writes the
+// kernel's outputs.
 //
 //   run_kernels <in> <out>
 
@@ -24,6 +25,77 @@ std::vector<T> read(std::ifstream& f, size_t n) {
   f.read(reinterpret_cast<char*>(v.data()), static_cast<std::streamsize>(n * sizeof(T)));
   return v;
 }
+
+template <class T>
+void write(std::ofstream& o, const std::vector<T>& v) {
+  o.write(reinterpret_cast<const char*>(v.data()), static_cast<std::streamsize>(v.size() * sizeof(T)));
+}
+
+#if defined(ABEA_FILL) || defined(ABEA_WALK)
+// head: reads, events, k-mers, band rows; then (walk only) the fill's trace
+// [rows, 100] u8, bll_e [rows] and seed [reads]; then the flat batch (ev,
+// gm, stdv, lstdv, ev_off, k_off, band_off, ne, nk, lp) and the order.  One
+// warp a read, as block `b` of 32 threads.
+int abea_main(std::ifstream& f, const char* out_path) {
+  const auto head = read<int64_t>(f, 4);
+  const int b = static_cast<int>(head[0]);
+  const size_t ne_all = static_cast<size_t>(head[1]), nk_all = static_cast<size_t>(head[2]);
+  const size_t rows = static_cast<size_t>(head[3]), nb = static_cast<size_t>(b);
+#ifdef ABEA_WALK
+  const auto trace = read<uint8_t>(f, rows * 100);
+  const auto bll_e = read<int32_t>(f, rows);
+  const auto seed = read<int32_t>(f, nb);
+#endif
+  const auto ev = read<float>(f, ne_all);
+  const auto gm = read<float>(f, nk_all);
+  const auto sd = read<float>(f, nk_all);
+  const auto ls = read<float>(f, nk_all);
+  const auto ev_off = read<int64_t>(f, nb);
+  const auto k_off = read<int64_t>(f, nb);
+  const auto band_off = read<int64_t>(f, nb);
+  const auto ne = read<int32_t>(f, nb);
+  const auto nk = read<int32_t>(f, nb);
+  const auto lp = read<double>(f, 4 * nb);
+  const auto order = read<int32_t>(f, nb);
+  std::ofstream o(out_path, std::ios::binary);
+#ifdef ABEA_FILL
+  std::vector<uint8_t> trace(rows * 100, 0xee);
+  std::vector<int32_t> bll_e(rows, -777), seed(nb, -777);
+  std::vector<float> last_val(rows, -777.0f);
+  for (int w = 0; w < b; ++w) {
+    emu_run_warp(w, 32, 0, [&] {
+      abea_fill_kernel(ev.data(), gm.data(), sd.data(), ls.data(), ev_off.data(), k_off.data(),
+                       band_off.data(), ne.data(), nk.data(), lp.data(), order.data(),
+                       trace.data(), bll_e.data(), last_val.data(), seed.data());
+    });
+  }
+  write(o, trace);
+  write(o, bll_e);
+  write(o, last_val);
+  write(o, seed);
+#else
+  std::vector<int32_t> pairs(2 * rows, 0), n(nb, -777), max_gap(nb, -777);
+  std::vector<double> sum_em(nb, -777.0);
+  for (int w = 0; w < b; ++w) {
+    emu_run_warp(w, 32, 0, [&] {
+      abea_walk_kernel(trace.data(), bll_e.data(), seed.data(), ev.data(), gm.data(), sd.data(),
+                       ls.data(), ev_off.data(), k_off.data(), band_off.data(), ne.data(),
+                       nk.data(), order.data(), pairs.data(), n.data(), max_gap.data(),
+                       sum_em.data());
+    });
+    if (!emu_pipeline_idle()) {
+      std::fprintf(stderr, "a lane ended with copies not waited for\n");
+      return 1;
+    }
+  }
+  write(o, pairs);
+  write(o, n);
+  write(o, max_gap);
+  write(o, sum_em);
+#endif
+  return 0;
+}
+#endif
 
 #ifdef BSW
 template <int E, int L>
@@ -101,7 +173,9 @@ std::vector<T> phmm_main(std::ifstream& f, const std::vector<int64_t>& head) {
 int main(int argc, char** argv) {
   std::ifstream f(argv[1], std::ios::binary);
   std::vector<int32_t> out;
-#ifdef PHMM
+#if defined(ABEA_FILL) || defined(ABEA_WALK)
+  return abea_main(f, argv[2]);
+#elif defined(PHMM)
   {
     const auto head = read<int64_t>(f, 7);  // f64, then phmm_main's head
     const std::vector<int64_t> rest(head.begin() + 1, head.end());

@@ -405,6 +405,28 @@ def test_abea_kernels_equal_to_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_abea_edge_reads_kernels_equal_to_plain(cuda):
+    """chip_smoke.abea_edge_reads (the warp fill's lanes and band ends, the
+    walk's windows) and its first batch blocked (chip_smoke.abea_blocked:
+    seed 0, clamped offsets): every output of both kernels bit for bit."""
+    model, batches = chip_smoke.abea_edge_reads(np.random.default_rng(0))
+    flat = [A.prepare_batch(seqs, evs, model, scales, shifts)[0]
+            for seqs, evs, scales, shifts in batches]
+    for batch_np in flat + [chip_smoke.abea_blocked(flat[0])]:
+        tb = abea_batch_from_numpy(batch_np, cuda)
+        before = (abea_cuda.abea_fill.launches, abea_cuda.abea_walk.launches)
+        fill = A.abea_fill(tb)
+        walk = A.abea_walk(tb, fill)
+        torch.cuda.synchronize()
+        assert (abea_cuda.abea_fill.launches, abea_cuda.abea_walk.launches) == (
+            before[0] + 1, before[1] + 1)
+        for k, v in A.abea_fill_plain(tb).items():
+            assert torch.equal(fill[k], v), k
+        for k, v in A.abea_walk_plain(tb, fill).items():
+            assert torch.equal(walk[k], v), k
+
+
+@pytest.mark.cuda
 def test_abea_goldens_on_card(cuda, fixtures_dir, tmp_path):
     sys.path.insert(0, str(Path(__file__).parent))
     from generate_fixtures import _pore_levels
@@ -452,6 +474,9 @@ def test_abea_wrappers_check_inputs(cuda):
         walk_k(tb, dict(fill, seed=fill["seed"].long()))
     with pytest.raises(ValueError, match="CUDA"):
         walk_k({k: v.cpu() for k, v in tb.items()}, fill)
+    with pytest.raises(ValueError, match="16-byte"):
+        walk_k(tb, dict(fill, bll_e=torch.empty(fill["bll_e"].numel() + 1, dtype=torch.int32,
+                                                device=cuda)[1:]))
     assert (fill_k.launches, walk_k.launches) == (before[0] + 1, before[1])
     empty = A.prepare_batch([], [], model, [], [])[0]
     te = abea_batch_from_numpy(empty, cuda)

@@ -98,7 +98,7 @@ def test_oracle_copy_equals_jax_oracle(setup):
 def test_oracle_view_searches_like_the_built_index(setup):
     oidx, enc = setup["oidx"], [O.encode_read(r) for r in setup["reads"]]
     view = O.oracle_view(IB.build_arrays(JB._CODE_TABLE[np.frombuffer(
-        setup["fwd"].encode(), np.uint8)]))
+        setup["fwd"].encode(), np.uint8)], device="cpu"))
     assert view.bwt.size == 0 and view.sa.size == 0
     for pp in range(oidx.ref_seq_len + 1):
         assert [O.occ(view, pp, c) for c in range(4)] == [O.occ(oidx, pp, c) for c in range(4)]
@@ -109,7 +109,7 @@ def test_oracle_view_searches_like_the_built_index(setup):
 @pytest.mark.parametrize("sa_compression", [False, True])
 def test_build_arrays_equals_jax(n_bases, sa_compression):
     codes = np.random.default_rng(n_bases).integers(0, 4, n_bases).astype(np.uint8)
-    got = IB.build_arrays(codes, sa_compression=sa_compression)
+    got = IB.build_arrays(codes, sa_compression=sa_compression, device="cpu")
     want = JB.build_arrays(codes, sa_compression=sa_compression)
     assert (got.ref_seq_len, got.sentinel_index, got.sa_compression) == (
         want.ref_seq_len, want.sentinel_index, want.sa_compression)
@@ -121,7 +121,7 @@ def test_build_arrays_equals_jax(n_bases, sa_compression):
     np.testing.assert_array_equal(got.sa_ms_byte, want.sa_ms_byte)
     np.testing.assert_array_equal(got.sa_ls_word, want.sa_ls_word)
     full = np.concatenate([codes, 3 - codes[::-1]])
-    np.testing.assert_array_equal(IB.suffix_array(full).numpy(), JO.suffix_array(full))
+    np.testing.assert_array_equal(IB.suffix_array(full, "cpu").numpy(), JO.suffix_array(full))
 
 
 def test_pack_fasta_equals_jax(tmp_path):
@@ -135,8 +135,20 @@ def test_pack_fasta_equals_jax(tmp_path):
 
 def test_suffix_array_edges():
     for text in ([0], [3, 3], [2, 2, 2, 2, 2], [3, 0], [1, 0, 1, 0, 1, 0, 1]):
-        np.testing.assert_array_equal(IB.suffix_array(np.array(text)).numpy(),
+        np.testing.assert_array_equal(IB.suffix_array(np.array(text), "cpu").numpy(),
                                       JO.suffix_array(np.array(text)))
+
+
+def test_builder_raises_without_cuda(monkeypatch):
+    """The builder is an entry point: with no GPU and no device it raises,
+    as every other one does, instead of building on the CPU quietly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    codes = np.array([0, 1, 2, 3, 3, 1], np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IB.build_arrays(codes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IB.suffix_array(codes)
+    assert IB.build_arrays(codes, device="cpu").ref_seq_len == 13
 
 
 def test_occ_all_equals_jax_at_every_position(setup):

@@ -55,7 +55,7 @@ def test_fmi_reference_golden_on_port():
     assert len(cases) == 25
     for ci, case in enumerate(cases):
         genome = np.array([_CODE[c] for c in case["seq"]], np.uint8)
-        arrays = build_arrays(genome, sa_compression=True)
+        arrays = build_arrays(genome, sa_compression=True, device="cpu")
         assert arrays.ref_seq_len == case["ref_len"], ci
         assert arrays.count.tolist() == case["count"], ci
         assert arrays.sentinel_index == case["sentinel_index"], ci

@@ -1,20 +1,24 @@
 """The device code of the port's warp kernels, csrc/bsw_extend.cu,
-csrc/chain_dp.cu and csrc/phmm_forward.cu, compiled with g++ and run on the
-CPU under a warp emulation (tests/cuda_emulation/: a warp's 32 lanes as
-fibers on one thread, every shuffle, vote and reduction a point where all
-32 post and then read), against the plain versions.
+csrc/chain_dp.cu, csrc/phmm_forward.cu, csrc/abea_fill.cu and
+csrc/abea_walk.cu, compiled with g++ and run on the CPU under a warp
+emulation (tests/cuda_emulation/: a warp's 32 lanes as fibers on one
+thread, every shuffle, vote and reduction a point where all 32 post and
+then read; cp.async copies made at their wait, the latest the card may
+make them), against the plain versions.
 
 The card is the only place the kernels run for real (tests/test_torch_cuda.py,
 chip_smoke.py); this holds their lane logic (the F chain's map scan, the
 row max's ballots, the band shrink, the max_skip walk, the mark bitmap, the
-register banks, PairHMM's wavefront, virtual rows and tile carry) to the
-plain versions on every CPU run.  The build uses -fsanitize=undefined, so
-a signed overflow aborts the run.
+register banks, PairHMM's wavefront, virtual rows and tile carry, the abea
+fill's band on shuffles and early emissions, the abea walk's shared-memory
+windows) to the plain versions on every CPU run.  The build uses
+-fsanitize=undefined, so a signed overflow aborts the run.
 
-Tolerance: none.  bsw and chain compute in int32.  PairHMM rounds every
-multiply and add on its own in float or double, on the card (-fmad=false)
-and here (-ffp-contract=off, SSE arithmetic), in the order of the plain
-version and the oracle, so raw sums must be bit-equal.
+Tolerance: none.  bsw and chain compute in int32.  PairHMM and abea round
+every multiply and add on its own in float or double, on the card
+(-fmad=false) and here (-ffp-contract=off, SSE arithmetic), in the order of
+the plain version and the oracle, so raw sums, traces, band positions, last
+values, seeds, pairs and emission sums must be bit-equal.
 """
 
 import json
@@ -29,8 +33,13 @@ import torch
 
 from genomicsbench_palisade_tpu_torch.cli.bsw import EDGES
 from genomicsbench_palisade_tpu_torch.convert import (INT8_KEYS, INT32_KEYS, TABLE_KEYS,
-                                                      bsw_batch_from_numpy, chain_batch_from_numpy)
+                                                      abea_batch_from_numpy, bsw_batch_from_numpy,
+                                                      chain_batch_from_numpy)
+from genomicsbench_palisade_tpu_torch.io import signal as SIG
+from genomicsbench_palisade_tpu_torch.ops import abea as A
+from genomicsbench_palisade_tpu_torch.ops import abea_cuda
 from genomicsbench_palisade_tpu_torch.ops import bsw as W
+from genomicsbench_palisade_tpu_torch.ops import events as EV
 from genomicsbench_palisade_tpu_torch.ops import chain as C
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as WO
@@ -55,14 +64,17 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """{"bsw", "chain", "phmm"}: the emulated kernels' executables."""
+    """{"bsw", "chain", "phmm", "abea_fill", "abea_walk"}: the emulated
+    kernels' executables."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the emulated kernels")
     out = tmp_path_factory.mktemp("emulated")
-    exes = {}
+    exes, procs = {}, []
     for name, src, defines in (("bsw", "bsw_extend.cu", ["-DBSW"]), ("chain", "chain_dp.cu", []),
-                               ("phmm", "phmm_forward.cu", ["-DPHMM", "-ffp-contract=off"])):
+                               ("phmm", "phmm_forward.cu", ["-DPHMM", "-ffp-contract=off"]),
+                               ("abea_fill", "abea_fill.cu", ["-DABEA_FILL", "-ffp-contract=off"]),
+                               ("abea_walk", "abea_walk.cu", ["-DABEA_WALK", "-ffp-contract=off"])):
         text = (CSRC / src).read_text()
         part = out / f"{name}_device.inc"
         part.write_text(text[: text.index(MARK) + len(MARK)])
@@ -70,9 +82,12 @@ def emulated(tmp_path_factory):
         cmd = [gxx, "-std=c++20", "-O1", "-fsanitize=undefined", "-fno-sanitize-recover=undefined",
                f"-I{EMU}", f'-DKERNEL_PART="{part}"', *defines, "-o", str(exe),
                str(EMU / "run_kernels.cpp"), "-pthread"]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        assert proc.returncode == 0, proc.stderr[-3000:]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
         exes[name] = exe
+    for proc in procs:  # the builds run side by side
+        _, err = proc.communicate()
+        assert proc.returncode == 0, err[-3000:]
     return exes
 
 
@@ -225,3 +240,83 @@ def test_phmm_emulated_goldens_equal_oracle(emulated, tmp_path, fixtures_dir):
                                               np_dtype) for r, h in zip(reads, haps)])
         got = _phmm(emulated["phmm"], tmp_path, tb, dt).numpy()
         np.testing.assert_array_equal(got, want.astype(np_dtype))
+
+
+ABEA_KEYS = ("ev", "gm", "stdv", "lstdv", "ev_off", "k_off", "band_off", "ne", "nk", "lp")
+
+
+def _abea_run(exe, tmp_path, tb, fill=None):
+    """The emulated fill (fill None) or walk of a flat CPU batch, a warp a
+    read in the wrappers' order: the kernel's outputs as tensors."""
+    b, rows = tb["ne"].numel(), A.n_rows(tb)
+    arrays = [np.array([b, tb["ev"].numel(), tb["gm"].numel(), rows], np.int64)]
+    if fill is not None:
+        arrays += [fill[k].numpy() for k in ("trace", "bll_e", "seed")]
+    arrays += [tb[k].numpy() for k in ABEA_KEYS] + [abea_cuda._order(tb).numpy()]
+    src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
+    with open(src, "wb") as f:
+        for a in arrays:
+            f.write(np.ascontiguousarray(a).tobytes())
+    proc = subprocess.run([str(exe), str(src), str(dst)], capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    raw = dst.read_bytes()
+    if fill is None:
+        layout = (("trace", np.uint8, (rows, 100)), ("bll_e", np.int32, (rows,)),
+                  ("last_val", np.float32, (rows,)), ("seed", np.int32, (b,)))
+    else:
+        layout = (("pairs", np.int32, (rows, 2)), ("n", np.int32, (b,)),
+                  ("max_gap", np.int32, (b,)), ("sum_em", np.float64, (b,)))
+    out, at = {}, 0
+    for key, dtype, shape in layout:
+        size = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        out[key] = torch.from_numpy(np.frombuffer(raw[at : at + size], dtype).reshape(shape).copy())
+        at += size
+    assert at == len(raw)
+    return out
+
+
+def _abea_check(emulated, tmp_path, batch_np):
+    """Both emulated kernels against the plain versions on one batch, bit
+    for bit; the walk from the plain fill.  Returns the plain walk."""
+    tb = abea_batch_from_numpy(batch_np, "cpu")
+    want_fill = A.abea_fill_plain(tb)
+    got_fill = _abea_run(emulated["abea_fill"], tmp_path, tb)
+    for k, v in want_fill.items():
+        assert torch.equal(got_fill[k], v), k
+    want_walk = A.abea_walk_plain(tb, want_fill)
+    got_walk = _abea_run(emulated["abea_walk"], tmp_path, tb, want_fill)
+    for k, v in want_walk.items():
+        assert torch.equal(got_walk[k], v), k
+    return want_walk
+
+
+def test_abea_emulated_equal_plain_on_edge_reads(emulated, tmp_path):
+    """chip_smoke.abea_edge_reads: ne or nk of 1, reads shorter than the
+    band, stay- and skip-heavy reads, ties, sums that round, a read of 13
+    windows, a batch of one read; and the first batch blocked
+    (chip_smoke.abea_blocked: every cell -inf, seed 0, clamped offsets)."""
+    model, batches = chip_smoke.abea_edge_reads(np.random.default_rng(0))
+    for seqs, evs, scales, shifts in batches:
+        batch_np, idx = A.prepare_batch(seqs, evs, model, scales, shifts)
+        assert len(idx) == len(seqs)
+        _abea_check(emulated, tmp_path, batch_np)
+    _abea_check(emulated, tmp_path, chip_smoke.abea_blocked(
+        A.prepare_batch(*batches[0][:2], model, *batches[0][2:])[0]))
+
+
+def test_abea_emulated_equal_plain_on_golden_reads(emulated, tmp_path):
+    """Reads of 1-2 kb by the golden recipe (chip_smoke.golden_reads, the
+    abea-512 cell's recipe): events and scalings by the port's host prep,
+    with the golden pore model."""
+    tsv = tmp_path / "pore.tsv"
+    chip_smoke.write_pore_model(tsv)
+    model = SIG.load_pore_model(str(tsv))
+    reads = list(chip_smoke.golden_reads([1000, 1400, 2000], np.random.default_rng(3)))
+    events = EV.detect_events_batch([sig for _, sig in reads])
+    seqs = [seq for seq, _ in reads]
+    shifts, scales = EV.estimate_scalings_mom_batch(seqs, model, events)
+    batch_np, _ = A.prepare_batch(seqs, [e["mean"] for e in events], model,
+                                  [float(v) for v in scales], [float(v) for v in shifts])
+    walk = _abea_check(emulated, tmp_path, batch_np)
+    assert all(A.decode(batch_np["band_off"], {k: v.numpy() for k, v in walk.items()}))
