@@ -134,20 +134,35 @@ non-zero and prints no result):
      plain version on the card, bit for bit on the whole final H and E
      [2, 136, 8192], from zero (the tool's input, which must stay all
      zero) and from a start seeded from --seed (H 0-60, E 0-30, the start
-     that tests the kernel and gives its time), with the tool's strip time
-     over the single call's, the bound, the cells
+     that tests the kernel and gives its time; both sides timed as the
+     best of 5 means of 8 calls in a row, and as the best of 5 single
+     calls, PR 6's yardstick), with the tool's strip time over each of
+     the phase's, the bound, the cells
      each side computes (every cell of 136 x 256 against the band cells
      of ksw_extend, counted by the plain bsw version, whose outputs the
-     prod side's are held to) and ns a cell;
+     prod side's are held to) and ns a cell; the slots each side's layout
+     computes (strip: lanes x rows a lane x target rows; prod: bsw_extend's
+     lanes x entries a lane x the rows each warp steps), ns a slot and
+     their ratio, and the chain floor (`strip_chain_cycles` a target row);
+     then, after the timed checks, the kernel against its plain version at
+     the edge instances, qe_pad 8 and 520, from the four starts of
+     `strip_edge_batch` (zero, seeded, INT32_MAX, H near INT32_MAX with E
+     small);
  14. the chain roofline probe, cell chain-roofline-128x4096: the probe tool
      (`tools.chain_roofline.run`) on its workload (128 calls of 4096
      anchors, rng seed 0, w 64, bw 500), counts reset just before and read
      just after (`chain_micro` and `chain_dp` must both launch), the SM
      clock and power sampled meanwhile; then
      `chain_micro` against its plain version on the card, bit for bit on
-     the whole [128, 4096], with times and the bound; the prod side
+     the whole [128, 4096], with times (both yardsticks, as phase 13) and
+     the bound; the prod side
      (`chain_dp` on the same anchors, windows 64 back) timed and held to
-     the plain chain version, which counts the predecessors it visits;
+     the plain chain version, which counts the predecessors it visits; ns
+     and SM cycles an anchor on each side at the phase's median clock, and
+     the chain floor (MICRO_CHAIN_CYCLES an anchor); then the kernel
+     against its plain version at windows 1, 33, 129, 257 and 700 on the
+     calls of `micro_edge_calls` (phantom predecessors, slopes whose
+     products wrap);
  15. the abea chain cost: per abea cell the ns and SM cycles (at the
      median clock of phases 13-14) a band of the fill and a step of the
      walk, and the chain floors; each kernel's device seconds over one
@@ -188,8 +203,10 @@ PROFILE_ATTEMPTS = 3  # traces of one run, when a trace shows no device event
 # its own, so each floating-point operation is one instruction.
 F32_OPS_PER_S = 132 * 128 * 1.98e9
 F64_OPS_PER_S = 132 * 64 * 1.98e9
-# int32: 64 INT32 units per SM (Hopper architecture white paper), likewise
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32: the issue rate, 4 warp instructions an SM a clock (128 lanes), which
+# the 64 INT32 lanes (Hopper architecture white paper) and integer IMADs on
+# the FMA pipe's other 64 fill together; likewise at 1.98 GHz
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_CELL = 12  # 8 multiplies + 4 adds (csrc/phmm_forward.cu)
 # int32 operations per band cell of ksw_extend (csrc/bsw_extend.cu): score
@@ -269,16 +286,39 @@ FMI_ORACLE_READS = 8
 FMI_CLI_READS = 16
 STRIP_SOURCE = "genomicsbench_palisade_tpu_torch/csrc/bsw_stripped.cu"
 STRIP_REPLACES = "tools/bsw_roofline.py:36"
-# int32 operations a cell of csrc/bsw_stripped.cu: score 2, M 3, H0 1, c 2,
-# g 2, the prefix max 1, F 2, j*e_ins 1, H 1, E 4
-STRIP_OPS_PER_CELL = 19
+# int32 instructions a cell that the stripped recurrence needs, with what
+# Hopper fuses counted as one (three-way add, add and max, three-way max) and
+# no loop-invariant term (csrc/bsw_stripped.cu's note): score 2, M 3, H0 1,
+# c 1, the running prefix max 1, F and H' 2, E' 2
+STRIP_OPS_PER_CELL = 12
 MICRO_SOURCE = "genomicsbench_palisade_tpu_torch/csrc/chain_micro.cu"
 MICRO_REPLACES = "tools/chain_roofline.py:38"
-# int32 operations a visited predecessor that the chain_micro function needs
-# (csrc/chain_micro.cu's note): dr 1, dq 1, dd 2, eligibility 7 (four
-# compares, three ands), slope 2, ilog 3 (clz, subtract, max), gap 3,
-# min_d 2, candidate 3, max 1
-MICRO_OPS_PER_VISIT = 25
+# int32 instructions a visited predecessor that the chain_micro function
+# needs, counted as STRIP_OPS_PER_CELL (csrc/chain_micro.cu's note): dr 1,
+# dq 1, dd 2 (subtract, abs), eligibility 4 (compares that chain their
+# predicates), slope 2 (multiply, shift), ilog 3 (max with 1, find leading
+# one, halve), gap 1, min_d 1, the candidate 1 (min_d - gap + sc_j), the
+# predicated max 1
+MICRO_OPS_PER_VISIT = 17
+# The fewest dependent SM cycles a target row (bsw_stripped, a group of L
+# lanes of K rows) or an anchor (chain_micro) of the two designs can take,
+# from the chain in their sources and Hopper's usual latencies (not
+# measured here: ~4 an integer op, ~23 a shuffle, ~30 a warp reduction).
+# A stripped row: the roll's shuffle into the lane's first row (23), its M,
+# c and g (7 ops, 28), the fold of the lane's K values (4K), log2(L) scan
+# rounds of a shuffle and a max (27 each), the exclusive shuffle (23), the
+# replay's K maxes, F and max(H0, F) (4(K + 2)).  A micro anchor: the add
+# and select of a slot (8), the lane's max (4), the warp reduction (30),
+# the max with qspan (4), the owning lane's select (4): ~50.  Times the
+# target rows or the anchors of a call, they give each kernel's chain floor.
+MICRO_CHAIN_CYCLES = 50
+PROBE_CHAIN = 8  # calls in a row a timing of the roofline phases (the bsw tool's --chain)
+STRIP_EDGE_QE = (8, 520)  # the kernel's narrowest and widest instances
+MICRO_EDGE_W = (1, 33, 129, 257, 700)  # one bank, two, five, past eight into shared memory
+
+
+def strip_chain_cycles(lanes: int, k: int) -> int:
+    return 23 + 28 + 4 * k + 27 * (lanes.bit_length() - 1) + 23 + 4 * (k + 2)
 
 
 def fail(msg: str):
@@ -806,6 +846,48 @@ def write_fastq(path, enc):
     with open(path, "w") as f:
         for i, row in enumerate(enc):
             f.write(f"@r{i}\n{acgt[row].tobytes().decode()}\n+\n{'I' * len(row)}\n")
+
+
+def strip_edge_batch(rng, qe_pad: int, tp: int, n: int):
+    """(q_codes, target, h_init, e_init) int32 numpy for `bsw_stripped`: n
+    pairs from each of four starts side by side (zero; seeded, H 0-60 and E
+    0-30; all INT32_MAX, interpret mode's "nan" scratch; H near INT32_MAX
+    with E small, where c + j*e_ins wraps), tp target rows, queries the
+    target's head with 8% substituted and PAD_CODE past it (the probe's
+    kind).  The zero start's pairs come first."""
+    big = 2**31 - 1
+    shape = (qe_pad, n)
+    starts = [(np.zeros(shape), np.zeros(shape)),
+              (rng.integers(0, 61, shape), rng.integers(0, 31, shape)),
+              (np.full(shape, big), np.full(shape, big)),
+              (rng.integers(big - 40, big, shape, endpoint=True), rng.integers(0, 30, shape))]
+    b = n * len(starts)
+    t = rng.integers(0, 4, (tp, b))
+    ql = min(qe_pad - 1, tp)
+    q = np.full((qe_pad, b), 5)  # ops.bsw_stripped.PAD_CODE
+    q[:ql] = np.where(rng.random((ql, b)) < 0.08, rng.integers(0, 4, (ql, b)), t[:ql])
+    h = np.concatenate([v[0] for v in starts], 1)
+    e = np.concatenate([v[1] for v in starts], 1)
+    return tuple(np.ascontiguousarray(a, dtype=np.int32) for a in (q, t, h, e))
+
+
+def micro_edge_calls(rng, b: int, n: int):
+    """(x_lo, qi, qspan, m_fp, gap0) int32 numpy for `chain_micro`: b calls
+    of n anchors, the first half of the probe's kind (x and q steps 1-39 and
+    1-29, the Q20 slope 157,286), the second with 10% of x's steps 20,000 to
+    2,000,000 and any int32 slope, so that dd * m wraps; qspan 10-29, gap0
+    0-9.  Every call starts on the phantom predecessors."""
+    steps = rng.integers(1, 40, (b, n))
+    half = b // 2
+    steps[half:] += (rng.random((b - half, n)) < 0.1) * rng.integers(20_000, 2_000_000,
+                                                                      (b - half, n))
+    x = np.cumsum(steps, axis=1).astype(np.int64).astype(np.uint32).view(np.int32)
+    qi = np.cumsum(rng.integers(1, 30, (b, n)), axis=1).astype(np.int32)
+    qspan = rng.integers(10, 30, (b, n)).astype(np.int32)
+    m_fp = np.concatenate([np.full(half, 157286),
+                           rng.integers(0, 2**31, b - half)]).astype(np.int32)
+    gap0 = rng.integers(0, 10, b).astype(np.int32)
+    return x, qi, qspan, m_fp, gap0
 
 
 # ---------------------------------------------------------------- measures
@@ -2194,8 +2276,8 @@ def strip_bound(qe_pad: int, tp: int, b: int):
     """Least time (ms) for the stripped recurrence: the larger of the bytes
     it must move (query codes, target codes, the H/E start in and the
     final H/E out, 4 bytes each) over HBM bandwidth and its int32
-    operations (STRIP_OPS_PER_CELL a cell of qe_pad x tp) over the int32
-    rate."""
+    instructions (STRIP_OPS_PER_CELL a cell of qe_pad x tp) over the
+    int32 issue rate."""
     t_bytes = 4 * (qe_pad * b + tp * b + 4 * qe_pad * b) / HBM_BYTES_PER_S
     t_ops = STRIP_OPS_PER_CELL * qe_pad * tp * b / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -2206,10 +2288,19 @@ def micro_bound(b: int, n_pad: int, w: int):
     must move (x, q and qspan in and the score out, 4 bytes each an anchor;
     8 a call) over HBM bandwidth and its int32 operations
     (MICRO_OPS_PER_VISIT a visited predecessor, w an anchor) over the
-    int32 rate."""
+    int32 issue rate."""
     t_bytes = (16 * b * n_pad + 8 * b) / HBM_BYTES_PER_S
     t_ops = MICRO_OPS_PER_VISIT * b * n_pad * w / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def probe_ms(torch, port: Port, fn, reps: int):
+    """(ms, the last result): the best of `reps` means of PROBE_CHAIN calls
+    in a row after `tools.warm_up` (CUDA events).  A single call's events
+    also take in the host's launch gap, tens of us against the redesigned
+    probes' fraction of a millisecond."""
+    secs, out = port.tools.time_calls(fn, torch.device(DEVICE), PROBE_CHAIN, reps)
+    return secs * 1e3, out
 
 
 def bsw_roofline_phase(torch, port: Port, rec: Record, seed: int):
@@ -2224,8 +2315,9 @@ def bsw_roofline_phase(torch, port: Port, rec: Record, seed: int):
         launches = port.launches()
     log("bsw-roofline-8192 tool " + json.dumps({**res, "launches": launches,
                                                 "clock_min_median_max": clock.summary()}))
-    if clock.rows:
-        rec.sm_mhz.append(clock.summary()["sm_mhz"][1])
+    mhz = clock.summary()["sm_mhz"][1] if clock.rows else None
+    if mhz:
+        rec.sm_mhz.append(mhz)
     rec.launched(launches, ("bsw_stripped",))
     if launches["bsw_extend"] <= 0:
         fail("bsw_roofline: the prod side did not launch bsw_extend")
@@ -2242,12 +2334,13 @@ def bsw_roofline_phase(torch, port: Port, rec: Record, seed: int):
     where = {"zero": "zero start, the tool's own input: H and E stay all zero",
              "seeded": "seeded start, the whole final H and E"}
     for name, (h, e) in starts.items():
-        S.bsw_stripped(q, t, h, e)  # warm-up
-        ms, got = time_ms(torch, lambda: S.bsw_stripped(q, t, h, e), 5)
+        ms, got = probe_ms(torch, port, lambda: S.bsw_stripped(q, t, h, e), 5)
+        single_ms, _ = time_ms(torch, lambda: S.bsw_stripped(q, t, h, e), 5)
         plain_ms, want = time_ms(torch, lambda: S.bsw_stripped_plain(q, t, h, e), 1)
         rec.check("bsw_stripped", max_abs_diff(torch, got, want),
                   f"bsw-roofline-8192 ({where[name]})")
         row[f"strip_{name}_ms"] = ms
+        row[f"strip_{name}_single_call_ms"] = single_ms
         row[f"plain_{name}_ms"] = plain_ms
         row[f"nonzero_{name}"] = int((got != 0).sum())
     # from H = E = 0 the recurrence never leaves 0, so only the seeded start
@@ -2257,31 +2350,71 @@ def bsw_roofline_phase(torch, port: Port, rec: Record, seed: int):
     if not row["nonzero_seeded"]:
         fail("bsw_roofline: the seeded start left H and E all zero")
     strip_ms = row["strip_seeded_ms"]
-    row["tool_strip_over_single_call"] = res["strip_ms"] / row["strip_zero_ms"]
+    row["tool_strip_over_phase"] = res["strip_ms"] / row["strip_zero_ms"]
+    row["tool_strip_over_single_call"] = res["strip_ms"] / row["strip_zero_single_call_ms"]
     bms, by = strip_bound(qe, tp, b)
 
     # the prod side: ksw_extend's band cells, counted by the plain version,
     # whose outputs the kernel's equal
     batch, params = port.bsw_batch_from_numpy(W.prepare_pairs(pairs, q_pad=res["qlen"],
                                                                t_pad=res["tlen"]), DEVICE)
-    W.bsw_extend(batch, params, q_max=res["qlen"])  # warm-up
-    prod_ms, prod = time_ms(torch, lambda: W.bsw_extend(batch, params, q_max=res["qlen"]), 5)
+    prod_ms, prod = probe_ms(torch, port,
+                             lambda: W.bsw_extend(batch, params, q_max=res["qlen"]), 5)
+    prod_single_ms, _ = time_ms(torch, lambda: W.bsw_extend(batch, params, q_max=res["qlen"]), 5)
     st = {}
     rec.check("bsw_extend", max_abs_diff(torch, prod, W.bsw_extend_plain(batch, params, stats=st)),
               "bsw-roofline-8192 (prod side)")
     strip_cells = qe * tp * b
-    row["tool_prod_over_single_call"] = res["prod_ms"] / prod_ms
+    row["tool_prod_over_phase"] = res["prod_ms"] / prod_ms
+    row["tool_prod_over_single_call"] = res["prod_ms"] / prod_single_ms
     row.update(strip_cells=strip_cells, prod_band_cells=st["cells"],
                tool_cells=b * res["qlen"] * res["tlen"], prod_ms=prod_ms,
+               prod_single_call_ms=prod_single_ms,
+               prod_over_strip_single_call=prod_single_ms / row["strip_seeded_single_call_ms"],
                strip_ns_per_cell=strip_ms * 1e6 / strip_cells,
                prod_ns_per_band_cell=prod_ms * 1e6 / st["cells"],
                strip_gcups_all_cells=strip_cells / (strip_ms * 1e-3) / 1e9,
                prod_gcups_band_cells=st["cells"] / (prod_ms * 1e-3) / 1e9,
                prod_over_strip=prod_ms / strip_ms, bound_ms=bms, bound_by=by,
-               bound_share=bms / strip_ms, seconds=time.perf_counter() - t0)
+               bound_share=bms / strip_ms)
+    # the slots each layout computes: the stripped kernel's L lanes of K rows
+    # on every target row; bsw_extend's lanes of K entries on every row a
+    # warp steps (until the last of its pairs stops)
+    _, lanes, k = S.layout(qe)
+    _, p_lanes, p_k = port.bsw_cuda.layout(res["qlen"])
+    per_warp = 32 // p_lanes
+    rows = st["pair_rows"]
+    warp_rows = np.pad(rows, (0, -len(rows) % per_warp)).reshape(-1, per_warp).max(1)
+    strip_slots = lanes * k * tp * b
+    prod_slots = int(warp_rows.sum()) * 32 * p_k
+    cyc = strip_chain_cycles(lanes, k)
+    row.update(strip_lanes=lanes, strip_rows_a_lane=k, strip_padding_share=1 - qe / (lanes * k),
+               strip_slots=strip_slots, prod_lanes=p_lanes, prod_entries_a_lane=p_k,
+               prod_warp_rows=int(warp_rows.sum()), prod_slots=prod_slots,
+               strip_ns_per_slot=strip_ms * 1e6 / strip_slots,
+               prod_ns_per_slot=prod_ms * 1e6 / prod_slots,
+               prod_over_strip_per_slot=(prod_ms / prod_slots) / (strip_ms / strip_slots),
+               sm_mhz=mhz if mhz else "not sampled", strip_chain_cycles_a_row=cyc,
+               strip_chain_floor_ms=tp * cyc / (mhz * 1e3) if mhz else "not sampled",
+               strip_cycles_a_row=strip_ms * mhz * 1e3 / tp if mhz else "not sampled",
+               seconds=time.perf_counter() - t0)
     log("bsw-roofline-8192 kernels vs plain " + json.dumps(row))
     rec.kern["bsw_stripped"].update(ms=strip_ms, plain_ms=row["plain_seeded_ms"],
                                     bound_ms=bms, bound_by=by, library_ms=None)
+
+    # the edge instances, after the timed checks: every start, bit for bit
+    t0 = time.perf_counter()
+    for qe_pad in STRIP_EDGE_QE:
+        q, t, h, e = (torch.from_numpy(a).to(DEVICE) for a in
+                      strip_edge_batch(rng, qe_pad, 256, 512))
+        got = S.bsw_stripped(q, t, h, e)
+        rec.check("bsw_stripped", max_abs_diff(torch, got, S.bsw_stripped_plain(q, t, h, e)),
+                  f"edge instance qe_pad {qe_pad} (zero, seeded, INT32_MAX, H near INT32_MAX)")
+        if got[:, :, :512].any() or not got[:, :, 512:].any():
+            fail(f"bsw_stripped edge qe_pad {qe_pad}: the zero start moved or the rest stayed 0")
+    log("bsw-roofline edge instances " + json.dumps(
+        {"qe_pad": STRIP_EDGE_QE, "pairs": 4 * 512, "target_rows": 256, "equal_to_plain": True,
+         "seconds": time.perf_counter() - t0}))
 
 
 def chain_roofline_phase(torch, port: Port, rec: Record):
@@ -2298,8 +2431,9 @@ def chain_roofline_phase(torch, port: Port, rec: Record):
         launches = port.launches()
     log("chain-roofline-128x4096 tool " + json.dumps({**res, "launches": launches,
                                                       "clock_min_median_max": clock.summary()}))
-    if clock.rows:
-        rec.sm_mhz.append(clock.summary()["sm_mhz"][1])
+    mhz = clock.summary()["sm_mhz"][1] if clock.rows else None
+    if mhz:
+        rec.sm_mhz.append(mhz)
     rec.launched(launches, ("chain_micro",))
     if launches["chain_dp"] <= 0:
         fail("chain_roofline: the prod side did not launch chain_dp")
@@ -2308,8 +2442,8 @@ def chain_roofline_phase(torch, port: Port, rec: Record):
     wl = tool.make_workload()
     b, n = wl["x"].shape
     args = [torch.from_numpy(wl[k]).to(DEVICE) for k in ("x", "qi", "qspan", "m_fp", "gap0")]
-    M.chain_micro(*args, w, bw)  # warm-up
-    ms, got = time_ms(torch, lambda: M.chain_micro(*args, w, bw), 5)
+    ms, got = probe_ms(torch, port, lambda: M.chain_micro(*args, w, bw), 5)
+    single_ms, _ = time_ms(torch, lambda: M.chain_micro(*args, w, bw), 5)
     plain_ms, want = time_ms(torch, lambda: M.chain_micro_plain(*args, w, bw), 1)
     rec.check("chain_micro", max_abs_diff(torch, got, want), "chain-roofline-128x4096 (whole output)")
     if int(got.max()) <= 15:
@@ -2317,8 +2451,8 @@ def chain_roofline_phase(torch, port: Port, rec: Record):
     bms, by = micro_bound(b, n, w)
 
     batch, params = tool.prod_batch(wl, w, bw, DEVICE)
-    C.chain_dp(batch, params)  # warm-up
-    prod_ms, prod = time_ms(torch, lambda: C.chain_dp(batch, params), 3)
+    prod_ms, prod = probe_ms(torch, port, lambda: C.chain_dp(batch, params), 3)
+    prod_single_ms, _ = time_ms(torch, lambda: C.chain_dp(batch, params), 3)
     st = {}
     rec.check("chain_dp", max_abs_diff(torch, prod, C.chain_dp_plain(batch, params, st)),
               "chain-roofline-128x4096 (prod side)")
@@ -2328,12 +2462,36 @@ def chain_roofline_phase(torch, port: Port, rec: Record):
            "prod_visits": st["predecessors"], "prod_scoring_visits": st["eligible"],
            "prod_breaks": st["breaks"], "micro_ns_per_visit": ms * 1e6 / micro_visits,
            "prod_ns_per_visit": prod_ms * 1e6 / st["predecessors"],
-           "prod_over_micro": prod_ms / ms, "bound_ms": bms, "bound_by": by,
-           "bound_share": bms / ms, "score_max": int(got.max()),
-           "seconds": time.perf_counter() - t0}
+           "prod_over_micro": prod_ms / ms, "micro_single_call_ms": single_ms,
+           "prod_single_call_ms": prod_single_ms,
+           "prod_over_micro_single_call": prod_single_ms / single_ms,
+           "bound_ms": bms, "bound_by": by,
+           "bound_share": bms / ms, "score_max": int(got.max())}
+    # a call's anchors are one chain on each side: ns and cycles an anchor
+    row.update(micro_ns_per_anchor=ms * 1e6 / n, prod_ns_per_anchor=prod_ms * 1e6 / n,
+               sm_mhz=mhz if mhz else "not sampled",
+               micro_cycles_per_anchor=ms * mhz * 1e3 / n if mhz else "not sampled",
+               prod_cycles_per_anchor=prod_ms * mhz * 1e3 / n if mhz else "not sampled",
+               micro_chain_cycles_an_anchor=MICRO_CHAIN_CYCLES,
+               micro_chain_floor_ms=n * MICRO_CHAIN_CYCLES / (mhz * 1e3) if mhz else "not sampled",
+               seconds=time.perf_counter() - t0)
     log("chain-roofline-128x4096 kernels vs plain " + json.dumps(row))
     rec.kern["chain_micro"].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                                    library_ms=None)
+
+    # the edge windows, after the timed checks
+    t0 = time.perf_counter()
+    calls = [torch.from_numpy(a).to(DEVICE) for a in
+             micro_edge_calls(np.random.default_rng(7), 64, 1500)]
+    for w_e in MICRO_EDGE_W:
+        got = M.chain_micro(*calls, w_e, bw)
+        rec.check("chain_micro", max_abs_diff(torch, got, M.chain_micro_plain(*calls, w_e, bw)),
+                  f"edge window w {w_e} (phantom predecessors, wrapping slopes)")
+        if int(got.max()) <= 30:
+            fail(f"chain_micro edge window w {w_e}: no anchor chained")
+    log("chain-roofline edge windows " + json.dumps(
+        {"w": MICRO_EDGE_W, "calls": 64, "anchors": 1500, "equal_to_plain": True,
+         "seconds": time.perf_counter() - t0}))
 
 
 # ---------------------------------------------------------------- main
@@ -2369,15 +2527,14 @@ def main(argv=None) -> int:
            "build_dir_free_gb": shutil.disk_usage(HERE).free / 1e9}
     log("env " + json.dumps(env))
 
-    # 2. build: one nvcc per source, all started together
-    sources = (port.phmm_cuda.SOURCE, port.bsw_cuda.SOURCE, port.chain_cuda.SOURCE,
-               port.abea_cuda.FILL_SOURCE, port.abea_cuda.WALK_SOURCE, port.occ_gather.SOURCE,
-               port.bsw_stripped.SOURCE, port.chain_micro.SOURCE)
+    # 2. build: one nvcc per source (with its wrapper's defines), all
+    # started together
+    builds = list(dict.fromkeys((k.source, k.defines) for k in port.kernels))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as ex:
-        lib_paths = list(ex.map(port.build.build, sources))
-    for src in sources:
-        port.build.load(src)
+    with ThreadPoolExecutor(len(builds)) as ex:
+        lib_paths = list(ex.map(lambda b: port.build.build(*b), builds))
+    for src, defines in builds:
+        port.build.load(src, defines)
     log(f"build {', '.join(p.name for p in lib_paths)}: {time.perf_counter() - t0:.2f} s")
     for lib_path in lib_paths:
         for ln in lib_path.with_suffix(".log").read_text().splitlines():

@@ -69,23 +69,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// Lanes a pair for each query edge (K = edge / lanes entries a lane);
-// compile-time constants, measured on the card (PERF.md, tools/bsw_lanes.py).
-#ifndef BSW_LANES_32
-#define BSW_LANES_32 8
-#endif
-#ifndef BSW_LANES_64
-#define BSW_LANES_64 8
-#endif
-#ifndef BSW_LANES_128
-#define BSW_LANES_128 32
-#endif
-#ifndef BSW_LANES_256
-#define BSW_LANES_256 32
-#endif
-#ifndef BSW_LANES_512
-#define BSW_LANES_512 32
-#endif
+// Lanes a pair for each query edge (K = edge / lanes entries a lane) come
+// from the build, -DBSW_LANES_<edge>=L: ops/bsw_cuda.py's LANES table,
+// measured on the card by tools/bsw_lanes.py.
 
 namespace {
 

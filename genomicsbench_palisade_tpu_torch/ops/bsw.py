@@ -141,6 +141,7 @@ def _plain_chunk(batch, params, stats):
     max_j, max_ie, gscore = max_i.clone(), max_i.clone(), max_i.clone()
     max_off = torch.zeros(b, dtype=torch.int32, device=dev)
     cells = torch.zeros((), dtype=torch.int64, device=dev)
+    rows = torch.zeros(b, dtype=torch.int64, device=dev)
 
     for i in range(tp):
         act = alive & (i < tlen)
@@ -151,6 +152,7 @@ def _plain_chunk(batch, params, stats):
         h1_pre = torch.where(beg == 0, torch.clamp(h0 - (o_del + e_del * (i + 1)), min=0), 0)
         if stats is not None:
             cells += torch.where(act, torch.clamp(end - beg, min=0), 0).sum()
+            rows += act
 
         t_char = target[:, i : i + 1]
         qsc = torch.where((t_char >= AMBIG) | q_amb, ambig,
@@ -218,6 +220,8 @@ def _plain_chunk(batch, params, stats):
 
     if stats is not None:
         stats["cells"] = stats.get("cells", 0) + int(cells)
+        stats["pair_rows"] = np.concatenate([stats.get("pair_rows", np.zeros(0, np.int64)),
+                                             rows.cpu().numpy()])
     return torch.stack([mmax, max_j + 1, max_i + 1, max_ie + 1, gscore, max_off])
 
 
@@ -226,7 +230,8 @@ def bsw_extend_plain(batch, params=DEFAULT_TUPLE, chunk: int = PLAIN_CHUNK,
     """The plain PyTorch version: [6, B] int32 (OUT_ORDER rows), on the
     batch's device, `chunk` pairs at a time.  `stats`, when given, gets
     "cells" added: the band cells the recurrence visits (rows a pair is
-    alive for, times their band width), the work the kernel must do."""
+    alive for, times their band width), the work the kernel must do, and
+    "pair_rows" extended by each pair's rows alive (in the batch's order)."""
     n = batch["h0"].shape[0]
     out = torch.empty((6, n), dtype=torch.int32, device=batch["h0"].device)
     for lo in range(0, n, chunk):

@@ -18,13 +18,23 @@ import ctypes
 
 import torch
 
-from .kernel import CudaKernel, check_tensor, require_cuda
+from .kernel import CudaKernel, check_tensor, require_cuda, with_defaults
 
 SOURCE = "bsw_extend"
 MAX_QUERY = 512  # the kernel's widest instance (cli/bsw.py's largest edge)
+# lanes a pair for each query edge of the kernel's instances, measured on
+# the card (tools/bsw_lanes.py, PERF.md); built as -DBSW_LANES_<edge>
+LANES = {32: 8, 64: 8, 128: 32, 256: 32, 512: 32}
 # the batch's tensors, in the order of the C signature, with their dtypes
 BATCH_DTYPES = {"codes": torch.int8, "q_off": torch.int64, "q_len": torch.int32,
                 "t_off": torch.int64, "t_len": torch.int32, "h0": torch.int32}
+
+
+def layout(q_max: int) -> tuple:
+    """(edge, lanes a pair, entries a lane) of the instance that `q_max`
+    picks: the first edge at or above it."""
+    edge = next(e for e in LANES if e >= q_max)
+    return edge, LANES[edge], edge // LANES[edge]
 
 
 class BswExtendKernel(CudaKernel):
@@ -33,7 +43,9 @@ class BswExtendKernel(CudaKernel):
     def __init__(self, defines=()):
         super().__init__("bsw_extend", SOURCE,
                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
-                         "bsw_error_string", defines)
+                         "bsw_error_string",
+                         with_defaults(((f"BSW_LANES_{e}", n) for e, n in LANES.items()),
+                                       defines))
 
     def _check(self, batch, params):
         dev = batch["h0"].device

@@ -22,7 +22,10 @@ e_ins, match, mismatch); the probe uses PARAMS.
 
 `bsw_stripped` dispatches on the device: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, whose wrapper (`bsw_stripped_cuda`)
-raises on anything else and counts its launches.
+raises on anything else and counts its launches.  The kernel's instances
+cover qe_pad up to MAX_QE_PAD: the bsw_extend wrapper's query limit of 512,
+plus one, rounded up to 8 (above it the probe's prod side cannot run
+either).
 """
 
 from __future__ import annotations
@@ -31,17 +34,30 @@ import ctypes
 
 import torch
 
-from .kernel import CudaKernel, check_tensor, require_cuda
+from .kernel import CudaKernel, check_tensor, require_cuda, with_defaults
 
 SOURCE = "bsw_stripped"
 NEG = -(1 << 20)
 PARAMS = (6, 1, 6, 1, 1, 4)  # tools/bsw_roofline.py's sparams
 PAD_CODE = 5  # query rows past the query
+# lanes a pair for each qe_pad edge of the kernel's instances, measured on
+# the card (tools/probe_lanes.py, PERF.md); built as
+# -DBSW_STRIPPED_LANES_<edge>
+LANES = {8: 8, 16: 8, 32: 16, 64: 8, 136: 8, 264: 16, 520: 32}
+EDGES = tuple(LANES)
+MAX_QE_PAD = EDGES[-1]  # qe_pad_of(512)
 
 
 def qe_pad_of(qlen: int) -> int:
     """The padded query rows: qlen + 1 rounded up to a multiple of 8."""
     return -(-(qlen + 1) // 8) * 8
+
+
+def layout(qe_pad: int) -> tuple:
+    """(edge, lanes a pair, rows a lane) of the instance that `qe_pad` picks:
+    the first edge at or above it, K = ceil(edge / lanes)."""
+    edge = next(e for e in EDGES if e >= qe_pad)
+    return edge, LANES[edge], -(-edge // LANES[edge])
 
 
 def bsw_stripped_plain(q_codes, target, h_init, e_init, params=PARAMS) -> torch.Tensor:
@@ -72,18 +88,23 @@ def _check_params(name, params):
 
 
 class BswStrippedKernel(CudaKernel):
-    def __init__(self):
+    def __init__(self, defines=()):
         super().__init__("bsw_stripped", SOURCE,
                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
-                         "bsw_stripped_error_string")
+                         "bsw_stripped_error_string",
+                         with_defaults(((f"BSW_STRIPPED_LANES_{e}", n) for e, n in LANES.items()),
+                                       defines))
 
     def __call__(self, q_codes, target, h_init, e_init, params=PARAMS) -> torch.Tensor:
         dev = q_codes.device
-        require_cuda(self.name, dev)
         _check_params(self.name, params)
         if q_codes.dim() != 2 or target.dim() != 2:
             raise ValueError(f"{self.name}: q_codes and target must be 2-D [rows, B]")
         qe_pad, b = q_codes.shape
+        if qe_pad > MAX_QE_PAD:
+            raise ValueError(f"{self.name}: qe_pad {qe_pad} is above the kernel's limit of "
+                             f"{MAX_QE_PAD} (a query of at most 512 bases)")
+        require_cuda(self.name, dev)
         check_tensor(self.name, "q_codes", q_codes, dev, torch.int32)
         check_tensor(self.name, "target", target, dev, torch.int32, (target.shape[0], b))
         check_tensor(self.name, "h_init", h_init, dev, torch.int32, (qe_pad, b))

@@ -30,11 +30,14 @@ import ctypes
 
 import torch
 
-from .kernel import CudaKernel, check_tensor, require_cuda
+from .kernel import CudaKernel, check_tensor, require_cuda, with_defaults
 
 SOURCE = "chain_micro"
 NEG = -(1 << 28)
 MAX_DIST = 5000  # max_dist_x and max_dist_y, both fixed to it by micro_batch
+# register banks of 32 window slots, measured on the card
+# (tools/probe_lanes.py, PERF.md); built as -DCHAIN_MICRO_BANKS
+BANKS = 8
 
 
 def n_log_of(bw: int) -> int:
@@ -73,10 +76,11 @@ def _check_params(name, w, bw):
 
 
 class ChainMicroKernel(CudaKernel):
-    def __init__(self):
+    def __init__(self, defines=()):
         super().__init__("chain_micro", SOURCE,
                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-                         "chain_micro_error_string")
+                         "chain_micro_error_string",
+                         with_defaults((("CHAIN_MICRO_BANKS", BANKS),), defines))
 
     def __call__(self, x_lo, qi, qspan, m_fp, gap0, w, bw) -> torch.Tensor:
         dev = x_lo.device

@@ -37,6 +37,15 @@ def check_tensor(name, key, t, dev, dtype, shape=None):
         raise ValueError(f"{name}: {key} is not contiguous")
 
 
+def with_defaults(defaults, defines=()) -> tuple:
+    """The build's ("NAME", value) pairs: `defaults` (a wrapper's measured
+    table, the only home of those constants: the source has no defaults of
+    its own) with `defines` put over them."""
+    merged = dict(defaults)
+    merged.update(defines)
+    return tuple(merged.items())
+
+
 class CudaKernel:
     """The C entry `name` of csrc/<source>.cu.  `argtypes` end with the
     stream; the entry returns an int error code that `error_symbol` (a

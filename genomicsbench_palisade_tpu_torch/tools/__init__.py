@@ -1,13 +1,18 @@
-"""Measurement tools of the port (run with `python -m`)."""
+"""Measurement tools of the port (run with `python -m`), and what the
+layout sweeps (`bsw_lanes`, `phmm_lanes`, `probe_lanes`) share: their
+builds, ptxas's usage and the fastest pick."""
 
 from __future__ import annotations
 
+import re
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from ..utils import build
 
 WARM_S = 0.1  # seconds of calls before a timing on a card
 
@@ -111,3 +116,46 @@ class SmClock:
             vals = sorted(r[k] for r in rows)
             out[key] = [vals[0], vals[len(vals) // 2], vals[-1]]
         return out
+
+
+def build_all(kernels) -> list:
+    """Build each kernel's library (its source with its defines), one nvcc a
+    build, all started together; the libraries' paths, in order."""
+    kernels = list(kernels)
+    with ThreadPoolExecutor(len(kernels)) as ex:
+        return list(ex.map(lambda k: build.build(k.source, k.defines), kernels))
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_USED = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_usage(log: str) -> dict:
+    """{mangled entry name: {"registers", "spill_stores", "spill_loads"}} of
+    every kernel instance in an nvcc -Xptxas -v log."""
+    usage, cur = {}, None
+    for ln in log.splitlines():
+        m = _ENTRY.search(ln)
+        if m:
+            cur = usage.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = _USED.search(ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = _SPILL.search(ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+    return usage
+
+
+def fastest(rows, key, pick) -> dict:
+    """{key(row): pick(row)} of the row with the least "ms" for each key."""
+    best = {}
+    for row in rows:
+        k = key(row)
+        if k not in best or row["ms"] < best[k]["ms"]:
+            best[k] = row
+    return {k: pick(r) for k, r in best.items()}

@@ -4,7 +4,8 @@
         [--reps 5] [--seed 1]
 
 csrc/bsw_extend.cu gives each query edge of cli/bsw.py (32-512) a group of
-BSW_LANES_<edge> lanes a pair, a compile-time constant.  This tool builds
+BSW_LANES_<edge> lanes a pair, a compile-time constant that the wrapper
+passes from its table (ops/bsw_cuda.LANES).  This tool builds
 the source once for each candidate group of an edge (-DBSW_LANES_<edge>=L,
 with K = edge / L entries a lane from 1 to 16), runs each build on
 `--pairs` pairs of that edge's bucket, holds every output to the plain
@@ -20,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import json
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -29,8 +29,7 @@ from ..cli.bsw import EDGES
 from ..convert import bsw_batch_from_numpy
 from ..ops import bsw as W
 from ..ops import bsw_cuda
-from ..utils import build
-from . import time_calls
+from . import build_all, fastest, time_calls
 
 LANES = (8, 16, 32)
 MAX_K = 16  # entries a lane: each is three registers (code, H, E) and two temporaries
@@ -62,8 +61,7 @@ def run(pairs=16384, reps=5, seed=1) -> list:
     dev = torch.device("cuda")
     cands = candidates()
     kernels = {c: bsw_cuda.BswExtendKernel(defines=((f"BSW_LANES_{c[0]}", c[1]),)) for c in cands}
-    with ThreadPoolExecutor(len(cands)) as ex:  # one nvcc a build, all at once
-        list(ex.map(lambda k: build.build(k.source, k.defines), kernels.values()))
+    build_all(kernels.values())
     rng = np.random.default_rng(seed)
     rows = []
     for edge in EDGES:
@@ -90,11 +88,7 @@ def main(argv=None):
     rows = run(args.pairs, args.reps, args.seed)
     for row in rows:
         print(json.dumps(row))
-    best = {}
-    for row in rows:
-        if row["edge"] not in best or row["ms"] < best[row["edge"]]["ms"]:
-            best[row["edge"]] = row
-    print(json.dumps({"fastest_lanes": {e: r["lanes"] for e, r in best.items()},
+    print(json.dumps({"fastest_lanes": fastest(rows, lambda r: r["edge"], lambda r: r["lanes"]),
                       "all_equal_to_plain": all(r["equal_to_plain"] for r in rows),
                       "device": torch.cuda.get_device_name(0)}))
     return 0 if all(r["equal_to_plain"] for r in rows) else 1

@@ -27,7 +27,6 @@ import argparse
 import json
 import re
 import subprocess
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -35,8 +34,9 @@ import torch
 from ..cli.phmm import PHMM_EDGES
 from ..ops import phmm as P
 from ..ops import phmm_cuda
-from ..utils import build
-from . import time_calls
+from . import build_all, time_calls
+from . import fastest as fastest_of
+from . import ptxas_usage as entry_usage
 
 LANES = (8, 16, 32)
 MAX_ROWS = {"f32": 16, "f64": 8}  # rows a lane: ten values of T each in registers
@@ -82,33 +82,17 @@ def make_cases(rng, n, edge):
     return reads, haps, pairs
 
 
-_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SHAPE = re.compile(r"phmm_forward_kernelI([fd])Li(\d+)ELi(\d+)E")
-_USED = re.compile(r"Used (\d+) registers")
-_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
 def ptxas_usage(log: str) -> dict:
     """{(dtype, lanes, rows): {"registers", "spill_stores", "spill_loads"}}
     of every phmm_forward_kernel instance in an nvcc -Xptxas -v log."""
-    usage, cur = {}, None
-    for ln in log.splitlines():
-        m = _ENTRY.search(ln)
-        if m:
-            s = _SHAPE.search(m.group(1))
-            cur = (("f32" if s.group(1) == "f" else "f64"), int(s.group(2)), int(s.group(3))) \
-                if s else None
-            if cur is not None:
-                usage.setdefault(cur, {})
-            continue
-        if cur is None:
-            continue
-        m = _USED.search(ln)
-        if m:
-            usage[cur]["registers"] = int(m.group(1))
-        m = _SPILL.search(ln)
-        if m:
-            usage[cur]["spill_stores"], usage[cur]["spill_loads"] = int(m.group(1)), int(m.group(2))
+    usage = {}
+    for name, use in entry_usage(log).items():
+        s = _SHAPE.search(name)
+        if s:
+            usage[("f32" if s.group(1) == "f" else "f64"), int(s.group(2)), int(s.group(3))] = use
     return usage
 
 
@@ -118,9 +102,7 @@ def run(cases=16384, reps=5, seed=1, dtypes=("f32", "f64"), edges=PHMM_EDGES) ->
     dev = torch.device("cuda")
     cands = candidates(dtypes, edges)
     kernels = {c: phmm_cuda.PhmmForwardKernel(DTYPES[c[0]], defines_of(*c)) for c in cands}
-    with ThreadPoolExecutor(len(cands)) as ex:  # one nvcc a build, all at once
-        libs = dict(zip(cands, ex.map(lambda k: build.build(k.source, k.defines),
-                                      kernels.values())))
+    libs = dict(zip(cands, build_all(kernels.values())))
     rng = np.random.default_rng(seed)
     rows = []
     for edge in edges:
@@ -146,12 +128,8 @@ def run(cases=16384, reps=5, seed=1, dtypes=("f32", "f64"), edges=PHMM_EDGES) ->
 
 def fastest(rows) -> dict:
     """{"f32 64": [lanes, rows], ...}: the fastest shape of each type and edge."""
-    best = {}
-    for row in rows:
-        key = f"{row['dtype']} {row['edge']}"
-        if key not in best or row["ms"] < best[key]["ms"]:
-            best[key] = row
-    return {k: [r["lanes"], r["rows"]] for k, r in best.items()}
+    return fastest_of(rows, lambda r: f"{r['dtype']} {r['edge']}",
+                      lambda r: [r["lanes"], r["rows"]])
 
 
 def parse_args(argv=None):

@@ -9,8 +9,9 @@ unchanged source is built once.  A failed build raises; nothing falls back.
 Flags: sm_90a (Hopper), -O3, and -fmad=false so that no multiply and add
 contract into an FMA (the kernels hold the oracle's rounding bit for bit).
 Never --use_fast_math.  `defines` (("NAME", value) pairs, passed as -D)
-build another variant of a source's compile-time constants beside the
-default one; the port's own path always builds the default.
+set a source's compile-time constants: a wrapper passes its measured
+table (lanes a pair, register banks), and a layout sweep builds variants
+of it beside the wrapper's own.
 """
 
 from __future__ import annotations

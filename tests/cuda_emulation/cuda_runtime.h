@@ -164,6 +164,7 @@ inline void __syncwarp(unsigned mask = 0xffffffffu) {
   emu_exchange<int>(mask, 0, [](uint64_t*) { return 0; });
 }
 
+inline int __vimax_s32_relu(int a, int b) { return max(max(a, b), 0); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
 inline int __ffs(unsigned v) { return __builtin_ffs(static_cast<int>(v)); }

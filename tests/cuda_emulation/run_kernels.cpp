@@ -1,7 +1,8 @@
 // Runs the device code of csrc/bsw_extend.cu (built with -DBSW),
 // csrc/phmm_forward.cu (-DPHMM), csrc/abea_fill.cu (-DABEA_FILL),
-// csrc/abea_walk.cu (-DABEA_WALK) or csrc/chain_dp.cu (the text before the
-// source's first "}  // namespace", included as KERNEL_PART) on the CPU
+// csrc/abea_walk.cu (-DABEA_WALK), csrc/bsw_stripped.cu (-DBSW_STRIPPED),
+// csrc/chain_micro.cu (-DCHAIN_MICRO) or csrc/chain_dp.cu (the text before
+// the source's first "}  // namespace", included as KERNEL_PART) on the CPU
 // under cuda_runtime.h's warp emulation.  Reads the batch from a binary
 // file written by tests/test_torch_kernel_emulation.py and writes the
 // kernel's outputs.
@@ -111,6 +112,79 @@ void run_bsw(const int8_t* codes, const int64_t* q_off, const int32_t* q_len, co
 }
 #endif
 
+#ifdef BSW_STRIPPED
+// head: qe_pad, tp, batch, the 6 params; then q_codes, h_init, e_init
+// [qe_pad, batch], target [tp, batch]; out [2, qe_pad, batch].  The
+// instance csrc/bsw_stripped.cu's with_instance picks for qe_pad, a warp at
+// a time.
+std::vector<int32_t> stripped_main(std::ifstream& f) {
+  const auto head = read<int64_t>(f, 9);
+  const int qe_pad = static_cast<int>(head[0]), tp = static_cast<int>(head[1]);
+  const int batch = static_cast<int>(head[2]);
+  Params p{};
+  int* fields = &p.o_del;
+  for (int k = 0; k < 6; ++k) fields[k] = static_cast<int>(head[3 + k]);
+  const size_t cells = static_cast<size_t>(qe_pad) * batch;
+  const auto q = read<int32_t>(f, cells);
+  const auto h = read<int32_t>(f, cells);
+  const auto e = read<int32_t>(f, cells);
+  const auto t = read<int32_t>(f, static_cast<size_t>(tp) * batch);
+  std::vector<int32_t> out(2 * cells, -777);
+  with_instance(qe_pad, [&](auto edge, auto lanes) {
+    constexpr int L = decltype(lanes)::value;
+    constexpr int G = 32 / L;
+    const int warps = (batch + G - 1) / G;
+    for (int w = 0; w < warps; ++w) {
+      emu_run_warp(w, 32, 0, [&] {
+        bsw_stripped_kernel<(decltype(edge)::value + L - 1) / L, L>(
+            q.data(), t.data(), h.data(), e.data(), out.data(), qe_pad, tp, batch, p);
+      });
+    }
+  });
+  return out;
+}
+#endif
+
+#ifdef CHAIN_MICRO
+// head: batch, n_pad, w, max_dist, bw; then x_lo, qi, qspan [batch, n_pad],
+// m_fp, gap0 [batch]; out [batch, n_pad].  The instance csrc/chain_micro.cu's
+// launch picks for w, a call (a block of one warp) at a time.
+template <int NB>
+void run_micro(const int32_t* x, const int32_t* q, const int32_t* s, const int32_t* m,
+               const int32_t* g, int32_t* out, int batch, int n_pad, Params p) {
+  for (int b = 0; b < batch; ++b) {
+    emu_run_warp(b, 32, 0, [&] { chain_micro_kernel<NB>(x, q, s, m, g, out, n_pad, p); });
+  }
+}
+
+std::vector<int32_t> micro_main(std::ifstream& f) {
+  const auto head = read<int64_t>(f, 5);
+  const int batch = static_cast<int>(head[0]), n_pad = static_cast<int>(head[1]);
+  const int w = static_cast<int>(head[2]);
+  const Params p{w, static_cast<int>(head[3]), static_cast<int>(head[4])};
+  const size_t n = static_cast<size_t>(batch) * n_pad;
+  const auto x = read<int32_t>(f, n);
+  const auto q = read<int32_t>(f, n);
+  const auto s = read<int32_t>(f, n);
+  const auto m = read<int32_t>(f, batch);
+  const auto g = read<int32_t>(f, batch);
+  std::vector<int32_t> out(n, -777);
+  const auto args = std::make_tuple(x.data(), q.data(), s.data(), m.data(), g.data(), out.data(),
+                                    batch, n_pad, p);
+  switch (min((w + 31) / 32, kBanks)) {
+    case 1: std::apply(run_micro<1>, args); break;
+    case 2: std::apply(run_micro<2>, args); break;
+    case 3: std::apply(run_micro<3>, args); break;
+    case 4: std::apply(run_micro<4>, args); break;
+    case 5: std::apply(run_micro<5>, args); break;
+    case 6: std::apply(run_micro<6>, args); break;
+    case 7: std::apply(run_micro<7>, args); break;
+    default: std::apply(run_micro<8>, args); break;
+  }
+  return out;
+}
+#endif
+
 #ifdef PHMM
 // one warp at a time, as block w of 32 threads: the groups of the warp
 // take the first slices of the shared carry
@@ -175,6 +249,10 @@ int main(int argc, char** argv) {
   std::vector<int32_t> out;
 #if defined(ABEA_FILL) || defined(ABEA_WALK)
   return abea_main(f, argv[2]);
+#elif defined(BSW_STRIPPED)
+  out = stripped_main(f);
+#elif defined(CHAIN_MICRO)
+  out = micro_main(f);
 #elif defined(PHMM)
   {
     const auto head = read<int64_t>(f, 7);  // f64, then phmm_main's head

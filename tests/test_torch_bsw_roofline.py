@@ -24,6 +24,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from genomicsbench_palisade_tpu.ops import bsw as JW
 from genomicsbench_palisade_tpu_torch.ops import bsw as W
+from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
 from genomicsbench_palisade_tpu_torch.ops import bsw_stripped as S
 from genomicsbench_palisade_tpu_torch import tools
 from genomicsbench_palisade_tpu_torch.tools import bsw_idle_timing as I
@@ -157,6 +158,22 @@ def test_wrapper_refuses_cpu_tensors_and_dispatches_to_plain():
     assert S.KERNELS == (S.bsw_stripped_cuda,) and S.bsw_stripped_cuda.name == "bsw_stripped"
 
 
+def test_wrapper_refuses_qe_pad_above_the_kernels_limit():
+    """The kernel's widest instance takes qe_pad 520, qe_pad_of(512): the
+    bsw_extend wrapper's query limit.  Wider columns are refused before any
+    launch, on any device; the plain version takes them."""
+    assert S.MAX_QE_PAD == S.qe_pad_of(512) == 520
+    t = torch.zeros((24, 4), dtype=torch.int32)
+    edge, wide = (torch.zeros((qe, 4), dtype=torch.int32) for qe in (520, 528))
+    before = S.bsw_stripped_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):  # 520 passes the limit
+        S.bsw_stripped_cuda(edge, t, edge, edge)
+    with pytest.raises(ValueError, match="qe_pad 528 is above the kernel's limit of 520"):
+        S.bsw_stripped_cuda(wide, t, wide, wide)
+    assert S.bsw_stripped_cuda.launches == before
+    assert S.bsw_stripped(wide, t, wide, wide).shape == (2, 528, 4)
+
+
 def test_tool_runs_on_the_cpu_when_told(capsys, monkeypatch):
     assert T.main(["--device", "cpu", "--pairs", "128", "--qlen", "16", "--tlen", "32",
                    "--reps", "1", "--chain", "1"]) == 0
@@ -208,3 +225,16 @@ def test_sm_clock_summary_and_warm_up_on_the_cpu():
     calls = []
     assert tools.warm_up(lambda: calls.append(1) or len(calls), torch.device("cpu")) == 1
     assert calls == [1]
+
+
+@pytest.mark.parametrize("qe_pad, want", [(1, (8, 8, 1)), (8, (8, 8, 1)), (9, (16, 8, 2)),
+                                          (48, (64, 8, 8)), (136, (136, 8, 17)),
+                                          (137, (264, 16, 17)), (520, (520, 32, 17))])
+def test_layout_is_the_instance_qe_pad_picks(qe_pad, want):
+    """(edge, lanes, rows a lane) from the wrapper's table: the first edge at
+    or above qe_pad, K = ceil(edge / lanes); every instance keeps K <= 17.
+    bsw_extend's, likewise, from its table."""
+    assert S.layout(qe_pad) == want
+    edge, lanes, k = want
+    assert lanes * k >= edge and k <= 17
+    assert bsw_cuda.layout(128) == (128, 32, 4) and bsw_cuda.layout(33) == (64, 8, 8)

@@ -575,16 +575,23 @@ def test_fmi_cli_on_card(cuda, tmp_path, capsys):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("start", ["zero", "seeded", "int32_max", "h_max_e_small"])
-def test_bsw_stripped_kernel_equal_to_plain(cuda, start):
+@pytest.mark.parametrize("ql", [45, 7, 15, 128, 263, 512])
+def test_bsw_stripped_kernel_equal_to_plain(cuda, start, ql):
     """The whole final H and E, from starts that wrap and starts that do
-    not, at a query that is not a multiple of 8 and a batch that leaves
-    threads idle.  Each query is its target's head with 8% substituted, as
-    in the probe, so that a nonzero start's main diagonal keeps scoring."""
-    rng = np.random.default_rng(21)
-    qe, tp, b = BS.qe_pad_of(45), 70, 300
+    not, at queries that are not a multiple of 8 (qe_pad 48, with padding
+    slots) and at the kernel's instance edges (qe_pad 8, 16, 136, 264, 520),
+    and a batch that leaves lanes idle.  Each query is its target's head
+    with 8% substituted, as in the probe, so that a nonzero start's main
+    diagonal keeps scoring."""
+    rng = np.random.default_rng(21 + ql)
+    # eight query rows forget a seeded start within ~30 target rows (E falls
+    # by e_del a row, and the diagonal leaves them after 8): keep it short
+    qe, b = BS.qe_pad_of(ql), 300
+    tp = 70 if qe > 8 else 16
     t = rng.integers(0, 4, (tp, b))
     q = np.full((qe, b), BS.PAD_CODE)
-    q[:45] = np.where(rng.random((45, b)) < 0.08, rng.integers(0, 4, (45, b)), t[:45])
+    n = min(ql, tp)
+    q[:n] = np.where(rng.random((n, b)) < 0.08, rng.integers(0, 4, (n, b)), t[:n])
     big = 2**31 - 1
     h, e = {"zero": (np.zeros((qe, b)), np.zeros((qe, b))),
             "seeded": (rng.integers(0, 61, (qe, b)), rng.integers(0, 31, (qe, b))),
@@ -617,16 +624,21 @@ def test_bsw_stripped_wrapper_checks_inputs(cuda):
         kernel(z, z, z, torch.zeros((64, 16), dtype=torch.int32, device=cuda).T)
     with pytest.raises(ValueError, match="6 ints"):
         kernel(z, z, z, z, (6, 1, 6, 1))
+    big = torch.zeros((528, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="520"):
+        kernel(big, z, big, big)
     assert kernel.launches == before
     assert kernel(z[:, :0], z[:, :0], z[:, :0], z[:, :0]).shape == (2, 16, 0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w,bw,wrap", [(64, 500, False), (13, 500, True), (5, 100_000, True),
-                                       (700, 500, False)])
+                                       (700, 500, False), (1, 500, True), (32, 500, False),
+                                       (33, 500, True), (129, 500, True), (700, 500, True)])
 def test_chain_micro_kernel_equal_to_plain(cuda, w, bw, wrap):
-    """Phantom predecessors, windows of 5 to 700 anchors, slopes whose
-    products wrap, and a bw whose log term passes 8, on 67 calls."""
+    """Phantom predecessors, windows of 1 to 700 anchors (one register
+    bank, its edge, two banks, and past them into the shared ring), slopes
+    whose products wrap, and a bw whose log term passes 8, on 67 calls."""
     rng = np.random.default_rng(w)
     b, n = 67, 1500
     steps = rng.integers(1, 40, (b, n))

@@ -1,6 +1,7 @@
 """The device code of the port's warp kernels, csrc/bsw_extend.cu,
-csrc/chain_dp.cu, csrc/phmm_forward.cu, csrc/abea_fill.cu and
-csrc/abea_walk.cu, compiled with g++ and run on the CPU under a warp
+csrc/chain_dp.cu, csrc/phmm_forward.cu, csrc/abea_fill.cu,
+csrc/abea_walk.cu, csrc/bsw_stripped.cu and csrc/chain_micro.cu, compiled
+with g++ and run on the CPU under a warp
 emulation (tests/cuda_emulation/: a warp's 32 lanes as fibers on one
 thread, every shuffle, vote and reduction a point where all 32 post and
 then read; cp.async copies made at their wait, the latest the card may
@@ -11,7 +12,8 @@ chip_smoke.py); this holds their lane logic (the F chain's map scan, the
 row max's ballots, the band shrink, the max_skip walk, the mark bitmap, the
 register banks, PairHMM's wavefront, virtual rows and tile carry, the abea
 fill's band on shuffles and early emissions, the abea walk's shared-memory
-windows) to the plain versions on every CPU run.  The build uses
+windows, the stripped recurrence's max-scan and roll, the micro chain's
+register and shared rings) to the plain versions on every CPU run.  The build uses
 -fsanitize=undefined, so a signed overflow aborts the run.
 
 Tolerance: none.  bsw and chain compute in int32.  PairHMM and abea round
@@ -39,8 +41,11 @@ from genomicsbench_palisade_tpu_torch.io import signal as SIG
 from genomicsbench_palisade_tpu_torch.ops import abea as A
 from genomicsbench_palisade_tpu_torch.ops import abea_cuda
 from genomicsbench_palisade_tpu_torch.ops import bsw as W
+from genomicsbench_palisade_tpu_torch.ops import bsw_cuda
+from genomicsbench_palisade_tpu_torch.ops import bsw_stripped as BS
 from genomicsbench_palisade_tpu_torch.ops import events as EV
 from genomicsbench_palisade_tpu_torch.ops import chain as C
+from genomicsbench_palisade_tpu_torch.ops import chain_micro as CM
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as WO
 from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as PO
@@ -64,17 +69,26 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """{"bsw", "chain", "phmm", "abea_fill", "abea_walk"}: the emulated
-    kernels' executables."""
+    """{"bsw", "chain", "phmm", "abea_fill", "abea_walk", "bsw_stripped",
+    "chain_micro"}: the emulated kernels' executables."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the emulated kernels")
     out = tmp_path_factory.mktemp("emulated")
     exes, procs = {}, []
-    for name, src, defines in (("bsw", "bsw_extend.cu", ["-DBSW"]), ("chain", "chain_dp.cu", []),
+
+    def lanes(kernel):  # the lanes or banks the wrapper builds the source with
+        return [f"-D{k}={v}" for k, v in kernel.defines]
+
+    for name, src, defines in (("bsw", "bsw_extend.cu", ["-DBSW", *lanes(bsw_cuda.bsw_extend)]),
+                               ("chain", "chain_dp.cu", []),
                                ("phmm", "phmm_forward.cu", ["-DPHMM", "-ffp-contract=off"]),
                                ("abea_fill", "abea_fill.cu", ["-DABEA_FILL", "-ffp-contract=off"]),
-                               ("abea_walk", "abea_walk.cu", ["-DABEA_WALK", "-ffp-contract=off"])):
+                               ("abea_walk", "abea_walk.cu", ["-DABEA_WALK", "-ffp-contract=off"]),
+                               ("bsw_stripped", "bsw_stripped.cu",
+                                ["-DBSW_STRIPPED", *lanes(BS.bsw_stripped_cuda)]),
+                               ("chain_micro", "chain_micro.cu",
+                                ["-DCHAIN_MICRO", *lanes(CM.chain_micro_cuda)])):
         text = (CSRC / src).read_text()
         part = out / f"{name}_device.inc"
         part.write_text(text[: text.index(MARK) + len(MARK)])
@@ -320,3 +334,36 @@ def test_abea_emulated_equal_plain_on_golden_reads(emulated, tmp_path):
                                   [float(v) for v in scales], [float(v) for v in shifts])
     walk = _abea_check(emulated, tmp_path, batch_np)
     assert all(A.decode(batch_np["band_off"], {k: v.numpy() for k, v in walk.items()}))
+
+
+
+@pytest.mark.parametrize("qe_pad", [8, 16, 32, 64, 136, 264, 520])
+def test_bsw_stripped_emulated_equals_plain(emulated, tmp_path, qe_pad):
+    """Each instance of csrc/bsw_stripped.cu at its qe_pad edge (every slot
+    of its lanes a query row, or the slots past qe_pad padding), 21 target
+    rows (not a multiple of the group), on chip_smoke.strip_edge_batch: its
+    four starts side by side (zero, seeded, INT32_MAX, H near INT32_MAX
+    with E small), three pairs each, so that a warp of pairs is left part
+    empty."""
+    n = 3
+    arrays = chip_smoke.strip_edge_batch(np.random.default_rng(qe_pad), qe_pad, 21, n)
+    q, t, h, e = arrays
+    head = np.array([qe_pad, t.shape[0], q.shape[1], *BS.PARAMS], np.int64)
+    got = _run(emulated["bsw_stripped"], tmp_path, [head, q, h, e, t], 2).reshape(2, qe_pad, -1)
+    assert torch.equal(got, BS.bsw_stripped_plain(*(torch.from_numpy(a) for a in arrays)))
+    assert not got[:, :, :n].any() and got[:, :, n:].any()
+
+
+@pytest.mark.parametrize("w", [1, 31, 32, 33, 64, 100, 129, 256, 257, 700])
+def test_chain_micro_emulated_equals_plain(emulated, tmp_path, w):
+    """csrc/chain_micro.cu at windows inside one register bank, at its edge,
+    across banks, at the edge of the default eight (256) and past them into
+    the shared ring (257: one slot there; 700), on more anchors than the
+    window (phantom predecessors first): chip_smoke.micro_edge_calls, two
+    calls of the probe's kind and two whose slope products wrap."""
+    b, n = 4, max(w + 150, 200)
+    calls = chip_smoke.micro_edge_calls(np.random.default_rng(w), b, n)
+    head = np.array([b, n, w, CM.MAX_DIST, 500], np.int64)
+    got = _run(emulated["chain_micro"], tmp_path, [head, *calls], b)
+    assert torch.equal(got, CM.chain_micro_plain(*(torch.from_numpy(a) for a in calls), w, 500))
+    assert int(got.max()) > 30

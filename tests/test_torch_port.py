@@ -244,7 +244,7 @@ assert "genomicsbench_palisade_tpu_torch.ops.abea_cuda" in names, names
 for n in ("cli.fmi", "ops.fmi", "ops.fmi_pipeline", "ops.occ_gather", "ops.oracle.fmi",
           "index.builder", "index.fmi_index", "tools.occ_gather_experiment",
           "ops.bsw_stripped", "ops.chain_micro", "tools.bsw_roofline", "tools.chain_roofline",
-          "tools.bsw_idle_timing"):
+          "tools.bsw_idle_timing", "tools.probe_lanes"):
     assert "genomicsbench_palisade_tpu_torch." + n in names, n
 print("ok", len(names))
 """
