@@ -277,6 +277,7 @@ OCC_SOURCE = "genomicsbench_palisade_tpu_torch/csrc/occ_gather.cu"
 OCC_ROW_REPLACES = "tools/occ_gather_experiment.py:42"
 OCC_TILE_REPLACES = "tools/occ_gather_experiment.py:111"
 OCC_RATE_IDX = 1 << 24  # 16,777,216 indices: a rate, not a launch
+OCC_BIG_ROWS = 40_000_000  # occ-gather-40m: 2.56 GB of rows, 51x the L2
 FMI_MBP = 256  # tools/genome_scale_fmi.py's --mbp default: 512,000,001 text characters
 FMI_READS = 2048  # its --reads
 FMI_READ_LEN = 151  # its --read-len
@@ -313,7 +314,9 @@ MICRO_OPS_PER_VISIT = 17
 # target rows or the anchors of a call, they give each kernel's chain floor.
 MICRO_CHAIN_CYCLES = 50
 PROBE_CHAIN = 8  # calls in a row a timing of the roofline phases (the bsw tool's --chain)
-STRIP_EDGE_QE = (8, 520)  # the kernel's narrowest and widest instances
+# the kernel's narrowest and widest register instances, and one past them
+# (the long-column kernel: three chunks of 512 rows, the last part full)
+STRIP_EDGE_QE = (8, 520, 1032)
 MICRO_EDGE_W = (1, 33, 129, 257, 700)  # one bank, two, five, past eight into shared memory
 
 
@@ -460,6 +463,40 @@ def write_dump(path, rng, n_calls, spans_rng=None):
             f.write("\n".join(f"{a} {b}" for a, b in zip(x, y)))
             f.write("\nEOR\n")
     return int(sizes.sum())
+
+
+def bsw_long_pairs(rng, n, q_lo, q_hi, t_hi=None):
+    """n pairs with queries of q_lo-q_hi bases past the register instances,
+    targets of 1-2 query lengths (at most t_hi), h0 20-59.  Three in four:
+    the query the target's head with 8% substituted and an indel of 1-6
+    bases every ~64 (gap chains in both directions), and in one of them 6
+    inserted bases over each edge of the long-query kernel's 512-entry
+    chunks (an F chain across the edge); one in four: a period of 1-3
+    bases in both (ties in the row max)."""
+    pairs = []
+    for k in range(n):
+        ql = int(rng.integers(q_lo, q_hi + 1))
+        tl = int(rng.integers(ql, 2 * ql + 1))
+        tl = min(tl, t_hi or tl)
+        if k % 4 == 3:
+            period = rng.integers(0, 4, int(rng.integers(1, 4)))
+            t, q = np.resize(period, tl), np.resize(np.roll(period, 1), ql)
+        else:
+            t = rng.integers(0, 4, tl)
+            q = np.concatenate([t, rng.integers(0, 4, max(ql - tl, 0))])
+            edges = np.arange(509, ql, 512)  # query bases 509-514 over j = 512, and so on
+            spots = edges if k % 4 == 1 else np.sort(rng.integers(0, ql, max(ql // 64, 1)))
+            for at in spots[::-1]:
+                gap = 6 if k % 4 == 1 else int(rng.integers(1, 7))
+                if k % 4 == 1 or rng.random() < 0.5:
+                    q = np.concatenate([q[:at], rng.integers(0, 4, gap), q[at:]])
+                else:
+                    q = np.concatenate([q[:at], q[at + gap:]])
+            q = np.concatenate([q, rng.integers(0, 4, max(ql - len(q), 0))])[:ql]
+            mut = rng.random(ql) < 0.08
+            q[mut] = rng.integers(0, 4, int(mut.sum()))
+        pairs.append((q.astype(np.int8), t.astype(np.int8), int(rng.integers(20, 60))))
+    return pairs
 
 
 def synth_bsw_bench_pairs(rng, b=8192, ql=128, tl=256):
@@ -1389,6 +1426,9 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
     log(f"bsw edge pairs: {len(pairs)} pairs, query lengths {BSW_EDGE_QLENS}, "
         f"max_abs_err {err}")
     rec.check(name, err, "the edge pairs")
+    t0 = time.perf_counter()
+    bsw_new_paths(torch, port, rec, seed)
+    log(f"bsw long queries and e_ins < 0: {time.perf_counter() - t0:.1f} s")
 
     # 6. the main path at the reference's bsw_large size
     (HERE / "build").mkdir(exist_ok=True)
@@ -1540,6 +1580,92 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
     log(f"bsw goldens bsw_golden.json: {good}/{len(cases)} exact")
     if good != len(cases) or not cases:
         fail(f"bsw goldens: {good}/{len(cases)}")
+
+
+def bsw_new_paths(torch, port: Port, rec: Record, seed: int):
+    """Phase 5's long queries and negative gap extension: the kernel against
+    its plain version, bit for bit."""
+    W, cli_bsw, kernel = port.W, port.cli_bsw, port.bsw_cuda.bsw_extend
+    name = kernel.name
+    rng = np.random.default_rng(seed + 11)
+    # the times at 1,024 and 4,096 bases: 512 pairs each, targets of 1-2 query
+    # lengths; the plain version (a step a target row) is timed at 1,024
+    timed = {}
+    for ql in (1024, 4096):
+        pairs = bsw_long_pairs(rng, 512, ql, ql)
+        tb, ptuple = port.bsw_batch_from_numpy(W.prepare_pairs(pairs), DEVICE)
+        W.bsw_extend(tb, ptuple, q_max=ql)  # warm-up
+        ms, got = time_ms(torch, lambda: W.bsw_extend(tb, ptuple, q_max=ql), 3)
+        timed[ql] = (pairs, tb, got)
+        row = {"shape": f"512x({ql}x{ql}-{2 * ql})", "ms": ms}
+        if ql == 1024:
+            st: dict = {}
+            plain_ms, want = time_ms(torch, lambda: W.bsw_extend_plain(tb, ptuple, stats=st), 1)
+            err = max_abs_diff(torch, got, want)
+            rec.check(name, err, f"512 pairs of {ql} bases")
+            bms, by = bsw_bound(tb, st["cells"])
+            row.update({"plain_ms": plain_ms, "max_abs_err": err, "band_cells": st["cells"],
+                        "band_gcups": st["cells"] / (ms * 1e-3) / 1e9, "bound_ms": bms,
+                        "bound_by": by})
+        log("bsw long-query kernel vs plain " + json.dumps(row))
+    # 512 pairs of 513-4,096 bases (targets up to 4,096) on the long-query
+    # kernel (rows in shared memory), and the 64 pairs of the 4,096-base
+    # launch with the shortest targets, held to one plain call
+    t0 = time.perf_counter()
+    mixed = bsw_long_pairs(rng, 512, 513, 4096, t_hi=4096)
+    tb, ptuple = port.bsw_batch_from_numpy(W.prepare_pairs(mixed), DEVICE)
+    got = W.bsw_extend(tb, ptuple)
+    if not (got[0] > tb["h0"]).any():
+        fail("bsw long queries: no score rose above its h0")
+    pairs4k, tb4k, got4k = timed[4096]
+    pick = torch.argsort(tb4k["t_len"].cpu(), stable=True)[:64]
+    both = mixed + [pairs4k[k] for k in pick.tolist()]
+    tb, ptuple = port.bsw_batch_from_numpy(W.prepare_pairs(both), DEVICE)
+    want = W.bsw_extend_plain(tb, ptuple)
+    err = max_abs_diff(torch, got, want[:, : len(mixed)])
+    rec.check(name, err, "512 pairs of 513-4,096 bases")
+    err4k = max_abs_diff(torch, got4k[:, pick.to(got4k.device)], want[:, len(mixed) :])
+    rec.check(name, err4k, "64 pairs of the 4,096-base launch")
+    log("bsw long queries " + json.dumps({"pairs": 512, "query_bases": [513, 4096],
+                                          "max_abs_err": err, "of_4096_launch": 64,
+                                          "max_abs_err_4096": err4k,
+                                          "seconds": time.perf_counter() - t0}))
+    # past a block's shared memory: the rows in global scratch
+    ql = 30_000
+    if not port.bsw_cuda.long_in_scratch(ql):
+        fail(f"bsw: a query of {ql} bases should keep its rows in scratch")
+    tb, ptuple = port.bsw_batch_from_numpy(
+        W.prepare_pairs(bsw_long_pairs(rng, 8, ql - 100, ql, t_hi=2000)), DEVICE)
+    err = max_abs_diff(torch, W.bsw_extend(tb, ptuple, q_max=ql), W.bsw_extend_plain(tb, ptuple))
+    rec.check(name, err, f"8 pairs of up to {ql} bases (scratch)")
+    log(f"bsw long queries in scratch: 8 pairs of {ql - 100}-{ql} bases, max_abs_err {err}")
+    # a tie across the first chunk edge: o_ins + e_ins = 0 ties H(i, i) and
+    # H(i, i + 1), and the best row is 511 (the later entry wins: qle 513)
+    params = port.bsw_oracle.BswParams(o_ins=-1, e_ins=1)
+    q = np.random.default_rng(7).integers(0, 4, 600).astype(np.int8)
+    tb, ptuple = port.bsw_batch_from_numpy(W.prepare_pairs([(q, q[:512], 30)], params), DEVICE,
+                                           params)
+    got = W.bsw_extend(tb, ptuple)
+    rec.check(name, max_abs_diff(torch, got, W.bsw_extend_plain(tb, ptuple)),
+              "a tie across a chunk edge")
+    if int(got[1, 0]) != 513:
+        fail(f"bsw tie across a chunk edge: qle {int(got[1, 0])}, want 513")
+    # e_ins -1 and -3: the edge pairs through cli.bsw's buckets (the register
+    # instances' e_ins < 0 variant), whole on the widest instance and on the
+    # long-query kernel
+    for e_ins in (-1, -3):
+        params = port.bsw_oracle.BswParams(e_ins=e_ins)
+        pairs = bsw_edge_pairs(np.random.default_rng(seed), params.o_ins, e_ins)
+        tb, ptuple = port.bsw_batch_from_numpy(W.prepare_pairs(pairs, params), DEVICE, params)
+        want = W.bsw_extend_plain(tb, ptuple)
+        by_bucket = cli_bsw.score_pairs(pairs, params, device=DEVICE)
+        got = torch.from_numpy(np.stack([by_bucket[k] for k in W.OUT_ORDER])).to(DEVICE)
+        err = max(max_abs_diff(torch, got, want),
+                  max_abs_diff(torch, W.bsw_extend(tb, ptuple, q_max=512), want),
+                  max_abs_diff(torch, W.bsw_extend(tb, ptuple, q_max=1024), want))
+        rec.check(name, err, f"the edge pairs at e_ins {e_ins}")
+        log(f"bsw edge pairs at e_ins {e_ins}: {len(pairs)} pairs, buckets, edge 512 and the "
+            f"long-query kernel, max_abs_err {err}")
 
 
 def chain_inputs(make, calls):
@@ -2025,10 +2151,12 @@ def occ_bound(rows_needed: int, n_idx: int, row_bytes: int):
 
 
 def occ_phase(torch, port: Port, rec: Record, seed: int):
-    """Phase 11, occ-gather-4m: the probe tool on its workload (the counted
-    path), then the kernels against their plain versions and timed at
-    16,777,216 indices on the same table."""
-    G, tool = port.occ_gather, port.occ_tool
+    """Phase 11, occ-gather-4m and occ-gather-40m: the probe tool on its
+    workload (the counted path), then the kernels against their plain
+    versions and timed on the tool's indices and at 16,777,216 indices on
+    the same table, then at 16,777,216 indices on a table of 40,000,000
+    rows (2.56 GB, 51x the L2: its fetch floor is clean of L2 hits)."""
+    tool = port.occ_tool
     t0 = time.perf_counter()
     table_np, idx_np = tool.make_workload()
     log(f"occ-gather-4m: table {table_np.shape[0]} rows x 64 B ({table_np.nbytes / 1e6:.0f} MB), "
@@ -2045,49 +2173,80 @@ def occ_phase(torch, port: Port, rec: Record, seed: int):
     if wrong:
         fail(f"occ_gather_experiment: {wrong} differ from numpy")
 
-    table = torch.from_numpy(table_np).to(DEVICE)
-    tiles = table.view(-1, 64)
-    table32 = table[:, :4].contiguous()
-    table128 = torch.cat([table, table], dim=1)
+    table4m = torch.from_numpy(table_np).to(DEVICE)
     rate_idx = np.random.default_rng(seed).integers(0, len(table_np), OCC_RATE_IDX).astype(np.int32)
-    for idx_host in (idx_np, rate_idx):
-        idx = torch.from_numpy(idx_host).to(DEVICE)
-        n = idx.numel()
-        label = f"{n:,} indices"
-        # the library gathers (index_select of the picked rows or tiles, the
-        # counterpart of the JAX tool's jnp.take): the fold's traffic alone
-        lib_ms = {64: time_ms(torch, lambda: table.index_select(0, idx), 5)[0],
-                  512: time_ms(torch, lambda: tiles.index_select(0, idx >> 3), 5)[0]}
-        distinct = {64: len(np.unique(idx_host)), 512: len(np.unique(idx_host >> 3))}
-        row = {"indices": n, "distinct_rows": distinct[64], "distinct_tiles": distinct[512],
-               "library_index_select_ms": lib_ms[64], "library_tile_select_ms": lib_ms[512]}
-        for width, tb in ((32, table32), (128, table128)):
+    occ_table_rates(torch, port, rec, "occ-gather-4m", table4m, idx_np, extras=True)
+    occ_table_rates(torch, port, rec, "occ-gather-4m", table4m, rate_idx, extras=True)
+    del table4m
+
+    # occ-gather-40m: 51x the L2, made on the card from --seed
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    table = torch.randint(-(1 << 62), 1 << 62, (OCC_BIG_ROWS, 8), generator=g, device=DEVICE,
+                          dtype=torch.int64)
+    idx = torch.randint(0, OCC_BIG_ROWS, (OCC_RATE_IDX,), generator=g, device=DEVICE,
+                        dtype=torch.int32)
+    torch.cuda.synchronize()
+    log(f"occ-gather-40m: table {OCC_BIG_ROWS} rows x 64 B ({OCC_BIG_ROWS * 64 / 1e9:.2f} GB), "
+        f"{OCC_RATE_IDX} indices, made on the card in {time.perf_counter() - t0:.1f} s")
+    occ_table_rates(torch, port, rec, "occ-gather-40m", table, idx.cpu().numpy())
+    del table, idx
+    torch.cuda.empty_cache()
+
+
+def occ_table_rates(torch, port: Port, rec: Record, cell: str, table, idx_host, extras=False):
+    """The gather kernels against their plain versions on `table` and the
+    indices `idx_host`, bit for bit, with times (single calls and the mean
+    of PROBE_CHAIN in a row), MB/s, Mrows/s, the bound by distinct bytes and
+    the fetch floor (every pick read once at the peak rate), and the library
+    gathers (`index_select` of the picked rows or tiles; `extras`: also of
+    32- and 128-byte rows).  At OCC_RATE_IDX indices the numbers go into the
+    kernels line: occ-gather-4m's as the kernel's own, occ-gather-40m's
+    under "occ_gather_40m"."""
+    G = port.occ_gather
+    idx = torch.from_numpy(idx_host).to(DEVICE)
+    tiles = table.view(-1, 64)
+    n = idx.numel()
+    label = f"{cell}, {n:,} indices"
+    lib_ms = {64: time_ms(torch, lambda: table.index_select(0, idx), 5)[0],
+              512: time_ms(torch, lambda: tiles.index_select(0, idx >> 3), 5)[0]}
+    distinct = {64: len(np.unique(idx_host)), 512: len(np.unique(idx_host >> 3))}
+    row = {"cell": cell, "indices": n, "distinct_rows": distinct[64],
+           "distinct_tiles": distinct[512], "library_index_select_ms": lib_ms[64],
+           "library_tile_select_ms": lib_ms[512]}
+    if extras:
+        for width, tb in ((32, table[:, :4].contiguous()), (128, torch.cat([table, table], 1))):
             ms, _ = time_ms(torch, lambda: tb.index_select(0, idx), 5)
             row[f"index_select{width}_ms"] = ms
             row[f"index_select{width}_mb_s"] = n * width / (ms * 1e-3) / 1e6
-        for key, name, fn, plain, width in (
-                ("row2", "occ_gather_row", lambda: G.occ_gather_row(table, idx, 2),
-                 lambda: G.occ_gather_row_plain(table, idx), 64),
-                ("row8", "occ_gather_row", lambda: G.occ_gather_row(table, idx, 8),
-                 lambda: G.occ_gather_row_plain(table, idx), 64),
-                ("tile8", "occ_gather_tile", lambda: G.occ_gather_tile(table, idx),
-                 lambda: G.occ_gather_tile_plain(table, idx), 512)):
-            fn()  # warm-up
-            ms, got = time_ms(torch, fn, 5)
-            plain_ms, want = time_ms(torch, plain, 1)
-            rec.check(name, max_abs_diff(torch, got, want), f"{label} ({key})")
-            bms, by = occ_bound(distinct[width], n, width)
-            # every picked row moved once at the peak rate, repeats included
-            all_rows_ms = occ_bound(n, n, width)[0]
-            row[key] = {"ms": ms, "plain_ms": plain_ms, "mb_s": n * width / (ms * 1e-3) / 1e6,
-                        "mrows_s": n / (ms * 1e-3) / 1e6, "ns_per_index": ms * 1e6 / n,
-                        "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
-                        "all_rows_at_peak_ms": all_rows_ms}
-            # the kernels line: the rate cell, the row kernel at its default 8 in flight
-            if n == OCC_RATE_IDX and key != "row2":
-                rec.kern[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                                      library_ms=lib_ms[width])
-        log(f"occ-gather-4m kernels vs plain, {label} " + json.dumps(row))
+    for key, name, fn, plain, width in (
+            ("row2", "occ_gather_row", lambda: G.occ_gather_row(table, idx, 2),
+             lambda: G.occ_gather_row_plain(table, idx), 64),
+            ("row8", "occ_gather_row", lambda: G.occ_gather_row(table, idx, 8),
+             lambda: G.occ_gather_row_plain(table, idx), 64),
+            ("tile8", "occ_gather_tile", lambda: G.occ_gather_tile(table, idx),
+             lambda: G.occ_gather_tile_plain(table, idx), 512)):
+        fn()  # warm-up
+        ms, got = time_ms(torch, fn, 5)
+        chain_ms, _ = probe_ms(torch, port, fn, 5)
+        plain_ms, want = time_ms(torch, plain, 1)
+        rec.check(name, max_abs_diff(torch, got, want), f"{label} ({key})")
+        bms, by = occ_bound(distinct[width], n, width)
+        floor_ms = occ_bound(n, n, width)[0]  # every pick fetched once at the peak rate
+        row[key] = {"ms": ms, "ms_in_a_row": chain_ms, "plain_ms": plain_ms,
+                    "mb_s": n * width / (chain_ms * 1e-3) / 1e6,
+                    "mrows_s": n / (chain_ms * 1e-3) / 1e6, "ns_per_index": chain_ms * 1e6 / n,
+                    "bound_ms": bms, "bound_by": by, "bound_share": bms / chain_ms,
+                    "fetch_floor_ms": floor_ms, "fetch_floor_share": floor_ms / chain_ms}
+        # the kernels line: the row kernel at its default 8 in flight
+        if n == OCC_RATE_IDX and key != "row2":
+            mine = {"ms": chain_ms, "ms_single_call": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                    "bound_by": by, "fetch_floor_ms": floor_ms, "library_ms": lib_ms[width]}
+            if cell == "occ-gather-4m":
+                rec.kern[name].update(mine)
+            else:
+                rec.kern[name]["occ_gather_40m"] = mine
+    log(f"occ-gather kernels vs plain, {label} " + json.dumps(row))
 
 
 def fnv64(h: int, data: bytes) -> int:
@@ -2569,7 +2728,11 @@ def main(argv=None) -> int:
                         "replaces": where[name][1], "launches": k["launches"],
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                        "library_ms": k.get("library_ms")})
+                        "library_ms": k.get("library_ms"),
+                        # the gathers: every pick fetched once at the peak rate, and
+                        # the same numbers on occ-gather-40m
+                        **{key: k[key] for key in ("fetch_floor_ms", "occ_gather_40m")
+                           if key in k}})
     log("kernel device seconds over one main-path run (torch.profiler) "
         + json.dumps(rec.device_s))
     print(json.dumps({"kernels": kernels}))

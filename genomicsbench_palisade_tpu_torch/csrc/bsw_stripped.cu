@@ -57,6 +57,17 @@
 // since F and the roll flow only to larger j.  A warp holds 32 / L pairs;
 // a pair that does not exist computes on zeros and writes nothing.
 //
+// Past the widest instance (qe_pad > 520): bsw_stripped_long_kernel, a warp
+// a pair, steps each target row over chunks of kChunk = 512 query rows.  In
+// a chunk lane r holds rows c0 + rK .. c0 + rK + K - 1 (K = 16) as the 520
+// instance does; their H and E live in `out` between rows (copied there
+// from h_init and e_init at the start: each lane reads and writes only its
+// own rows, so no barrier), and two scalars cross a chunk boundary: the F
+// prefix maximum and the chunk's last max(H0, F), which the roll hands to
+// the next chunk's first row.  It is the same recurrence in the same wrap
+// arithmetic; its H/E traffic goes through the L1 and L2 caches on every
+// row, so it is not a roofline design: it lets the probe run at any qe_pad.
+//
 // Bound.  Per cell 12 instructions of the card, counting what Hopper
 // fuses as one (IADD3 a three-way add, VIADDMNMX an add and a max,
 // VIMNMX3 a three-way max) and no loop-invariant term (j*e_ins is a
@@ -191,6 +202,95 @@ bsw_stripped_kernel(const int32_t* __restrict__ q_codes, const int32_t* __restri
   }
 }
 
+constexpr int kChunkK = 16;  // rows a lane of a long column's chunk
+constexpr int kChunk = 32 * kChunkK;  // rows a chunk
+
+// qe_pad > 520: a warp a pair (see the note at the top)
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+bsw_stripped_long_kernel(const int32_t* __restrict__ q_codes, const int32_t* __restrict__ target,
+                         const int32_t* __restrict__ h_init, const int32_t* __restrict__ e_init,
+                         int32_t* __restrict__ out, int qe_pad, int tp, int batch, Params p) {
+  constexpr int C = 32 * K;
+  const int lane = threadIdx.x & 31;
+  const int64_t b = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (b >= batch) return;  // the whole warp
+  const size_t stride = static_cast<size_t>(batch);
+  int32_t* __restrict__ hs = out + b;
+  int32_t* __restrict__ es = out + static_cast<size_t>(qe_pad) * stride + b;
+  for (int c0 = 0; c0 < qe_pad; c0 += C) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = c0 + lane * K + k;
+      if (j < qe_pad) {
+        hs[j * stride] = h_init[j * stride + b];
+        es[j * stride] = e_init[j * stride + b];
+      }
+    }
+  }
+  const int32_t oe_del = wadd(p.o_del, p.e_del);
+  const int32_t oe_ins = wadd(p.o_ins, p.e_ins);
+  const int32_t mis = wsub(0, p.mismatch);
+
+  int32_t tcodes = 0;
+  for (int i = 0; i < tp; ++i) {
+    if ((i & 31) == 0) {
+      tcodes = i + lane < tp ? target[static_cast<size_t>(i + lane) * stride + b] : 0;
+    }
+    const int32_t tc = __shfl_sync(kFull, tcodes, i & 31);
+    int32_t run_in = kNeg, h_roll = 0;  // what crosses a chunk boundary
+    for (int c0 = 0; c0 < qe_pad; c0 += C) {
+      const int j0 = c0 + lane * K;
+      int32_t H[K], E[K], h0[K], g[K];
+      int32_t gl = kNeg;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = j0 + k;
+        const bool in = j < qe_pad;
+        const int32_t qc = in ? q_codes[j * stride + b] : 0;
+        H[k] = in ? hs[j * stride] : 0;
+        E[k] = in ? es[j * stride] : 0;
+        const int32_t qsc = qc == tc ? p.match : mis;
+        const int32_t m = H[k] != 0 ? wadd(H[k], qsc) : 0;
+        h0[k] = max(m, E[k]);
+        const int32_t c = max(wsub(m, oe_ins), 0);
+        const int32_t je = static_cast<int32_t>(static_cast<uint32_t>(j) *
+                                                static_cast<uint32_t>(p.e_ins));
+        g[k] = max(wadd(c, je), kNeg);
+        gl = max(gl, g[k]);
+        E[k] = __vimax_s32_relu(wsub(E[k], p.e_del), wsub(m, oe_del));
+      }
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t v = __shfl_up_sync(kFull, gl, d);
+        if (lane >= d) gl = max(gl, v);
+      }
+      int32_t run = __shfl_up_sync(kFull, gl, 1);
+      run = lane == 0 ? run_in : max(run, run_in);
+      run_in = max(run_in, __shfl_sync(kFull, gl, 31));
+      int32_t hn[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int32_t jm1e = static_cast<int32_t>(static_cast<uint32_t>(j0 + k - 1) *
+                                                  static_cast<uint32_t>(p.e_ins));
+        hn[k] = __vimax_s32_relu(h0[k], wsub(run, jm1e));
+        run = max(run, g[k]);
+      }
+      int32_t h_in = __shfl_up_sync(kFull, hn[K - 1], 1);
+      if (lane == 0) h_in = c0 == 0 ? 0 : h_roll;
+      h_roll = __shfl_sync(kFull, hn[K - 1], 31);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = j0 + k;
+        if (j < qe_pad) {
+          hs[j * stride] = k == 0 ? h_in : hn[k - 1];
+          es[j * stride] = E[k];
+        }
+      }
+    }
+  }
+}
+
 template <int V>
 using Int = std::integral_constant<int, V>;
 
@@ -214,16 +314,20 @@ extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // q_codes, h_init, e_init: int32 [qe_pad, batch]; target: int32 [tp,
-// batch]; out: int32 [2, qe_pad, batch], the final H then E.  qe_pad <=
-// 520 (the bsw_extend wrapper's query limit of 512, plus one, rounded up
-// to 8); it picks the instance.
+// batch]; out: int32 [2, qe_pad, batch], the final H then E.  qe_pad
+// picks the instance; above 520 the long-column kernel runs.
 int bsw_stripped(const int32_t* q_codes, const int32_t* target, const int32_t* h_init,
                  const int32_t* e_init, int32_t* out, int qe_pad, int tp, int batch, int o_del,
                  int e_del, int o_ins, int e_ins, int match, int mismatch, void* stream) {
   if (batch <= 0 || qe_pad <= 0) return 0;
-  if (qe_pad > 520) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{o_del, e_del, o_ins, e_ins, match, mismatch};
   const auto s = static_cast<cudaStream_t>(stream);
+  if (qe_pad > 520) {
+    const int64_t blocks = (static_cast<int64_t>(batch) * 32 + kThreads - 1) / kThreads;
+    bsw_stripped_long_kernel<kChunkK><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        q_codes, target, h_init, e_init, out, qe_pad, tp, batch, p);
+    return static_cast<int>(cudaGetLastError());
+  }
   const cudaError_t err = with_instance(qe_pad, [&](auto edge, auto lanes) {
     constexpr int L = decltype(lanes)::value;
     static_assert(L == 8 || L == 16 || L == 32, "a group is 8, 16 or 32 lanes");

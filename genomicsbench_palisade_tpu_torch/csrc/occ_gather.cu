@@ -13,25 +13,35 @@
 // that bounds the fmi device engine on this card.
 //
 // occ_gather_row: out[0..7] = XOR over i < n of table[idx[i]][0..7] (int64
-// words).  Each thread takes indices i0, i0 + stride, ... and loads a row
-// as four 16-byte read-only vector loads; it issues the loads of
-// kRowsInFlight rows (2 or 8, the probe's nslots) before folding any, so
-// that many misses are outstanding a thread.  The fold ends with an XOR
-// shuffle across the warp and one atomicXor a warp a word.  Every one of
-// the n indices is folded (the Pallas grid dropped the last n % 512).
+// words).  occ_gather_tile: out[0..63] = XOR over i of the 8 rows starting
+// at row 8 * (idx[i] >> 3), the 512-byte tile the Pallas probe moved whole
+// (the table's row count is a multiple of 8).  Every one of the n indices
+// is folded (the Pallas grid dropped the last n % 512), and every index's
+// row or tile is fetched from device memory: no sort, no de-duplication,
+// no cancelling of rows picked an even number of times, and no reuse
+// across indices beyond what the caches give a gather in random order.
 //
-// occ_gather_tile: out[0..63] = XOR over i of the 8 rows starting at row
-// 8 * (idx[i] >> 3), the 512-byte tile the Pallas probe moved whole.  A warp
-// reads one tile as 32 lanes x 16 bytes (one coalesced request) and keeps
-// kGroup = 8 tiles in flight; lane q folds bytes 16q..16q+15 of every tile
-// and ends with one atomicXor a word.  The table's row count must be a
-// multiple of 8.
+// Design.  occ_gather_row: 4 lanes share a row, 16 bytes each, so one
+// warp load instruction reads 8 whole rows (one request a row, where a
+// thread a row took four, each touching 32 rows).  A warp reads 8 * DEPTH
+// indices coalesced, hands each quad of lanes its rows by shuffles and
+// issues DEPTH loads a lane (DEPTH rows in flight a quad, 8 * DEPTH a warp)
+// before folding any.  occ_gather_tile: a warp a tile (32 lanes x 16
+// bytes, one coalesced 512-byte request), DEPTH tiles in flight a warp.
+// Each lane folds 16 bytes (its quarter of a row, or its sixteenth of a
+// tile) and the warp ends with XOR shuffles and one atomicXor a word.
+// DEPTH comes from ops/occ_gather.py's LAYOUTS table as -DOCC_<ROW2|ROW8|
+// TILE>_DEPTH (the source has no defaults), measured on the card by
+// tools/gather_lanes.py.  Four blocks an SM, plain __ldg loads: blocks 8,
+// loads that skip L1 allocation or set an L2 fetch size, and bulk copies
+// (cp.async.bulk into a shared ring with mbarriers) were measured and won
+// nothing (PERF.md).
 //
 // Bound.  Each kernel must read its indices (4 bytes each) and the rows
 // they pick (64 or 512 bytes each) and write 64 or 512 bytes: bound by
-// bytes, at device-memory bandwidth if every row is a cold miss.  Rows
-// picked at random from a table past the 50 MB L2 are: the question the
-// probe answers is how close random 64-byte reads come to that bound.
+// bytes, at device-memory bandwidth if every row is a cold miss.  The
+// distinct rows picked are the least it could read; a gather that fetches
+// every pick, as this one must, reads n rows (the fetch floor).
 //
 // An index outside the table stops the kernel (__trap, like a device-side
 // assert): the launch then fails at the next synchronisation.
@@ -42,89 +52,127 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kGroup = 8;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBlocksPerSm = 4;
 
-template <int kRowsInFlight>
-__global__ void __launch_bounds__(kThreads)
-occ_gather_row_kernel(const longlong2* __restrict__ table, const int32_t* __restrict__ idx,
-                      int64_t n, int64_t rows, unsigned long long* __restrict__ out) {
-  unsigned long long acc[8];
+__device__ __forceinline__ void fold(ulonglong2& acc, const ulonglong2& v) {
+  acc.x ^= v.x;
+  acc.y ^= v.y;
+}
+
+__device__ __forceinline__ void check_row(int32_t row, int64_t rows) {
+  if (row < 0 || row >= rows) __trap();
+}
+
+// the warp's folds into out: lanes that hold the same 16 bytes of a row
+// (lane & 3 for rows) or of a tile (every lane its own) XOR across the warp
+template <int kParts>
+__device__ __forceinline__ void flush(ulonglong2 acc, unsigned long long* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int w = 0; w < 8; ++w) acc[w] = 0;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i0 = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i0 < n;
-       i0 += stride * kRowsInFlight) {
-    longlong2 v[kRowsInFlight][4];
-#pragma unroll
-    for (int r = 0; r < kRowsInFlight; ++r) {
-      const int64_t i = i0 + r * stride;
-      if (i < n) {
-        const int32_t row = __ldg(idx + i);
-        if (row < 0 || row >= rows) __trap();
-        const longlong2* p = table + static_cast<int64_t>(row) * 4;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) v[r][q] = __ldg(p + q);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) v[r][q] = make_longlong2(0, 0);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsInFlight; ++r) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[2 * q] ^= static_cast<unsigned long long>(v[r][q].x);
-        acc[2 * q + 1] ^= static_cast<unsigned long long>(v[r][q].y);
-      }
-    }
+  for (int off = kParts; off < 32; off <<= 1) {
+    acc.x ^= __shfl_xor_sync(kFull, acc.x, off);
+    acc.y ^= __shfl_xor_sync(kFull, acc.y, off);
   }
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc[w] ^= __shfl_xor_sync(kFull, acc[w], off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int w = 0; w < 8; ++w) atomicXor(out + w, acc[w]);
+  if (lane < kParts) {
+    atomicXor(out + 2 * lane, acc.x);
+    atomicXor(out + 2 * lane + 1, acc.y);
   }
 }
 
+// lane l reads part l & 3 of row slot l >> 2; a step of the warp takes
+// 8 * D indices, D rows a quad
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-occ_gather_tile_kernel(const longlong2* __restrict__ table, const int32_t* __restrict__ idx,
+occ_gather_row_kernel(const ulonglong2* __restrict__ table, const int32_t* __restrict__ idx,
+                      int64_t n, int64_t rows, unsigned long long* __restrict__ out) {
+  constexpr int kStep = 8 * D;
+  constexpr int kIdxRegs = (kStep + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  const int q = lane & 3, s = lane >> 2;
+  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  ulonglong2 acc{0, 0};
+  for (int64_t base = warp * kStep; base < n; base += warps * kStep) {
+    int32_t iv[kIdxRegs];
+#pragma unroll
+    for (int m = 0; m < kIdxRegs; ++m) {
+      const int64_t i = base + 32 * m + lane;
+      iv[m] = 32 * m + lane < kStep && i < n ? idx[i] : 0;
+    }
+    ulonglong2 v[D];
+#pragma unroll
+    for (int t = 0; t < D; ++t) {
+      // slot t * 8 + s of the step: lane (t % 4) * 8 + s of index register t / 4
+      const int32_t row = __shfl_sync(kFull, iv[t / 4], (t % 4) * 8 + s);
+      if (base + t * 8 + s < n) {
+        check_row(row, rows);
+        v[t] = __ldg(table + static_cast<int64_t>(row) * 4 + q);
+      } else {
+        v[t] = ulonglong2{0, 0};
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < D; ++t) fold(acc, v[t]);
+  }
+  flush<4>(acc, out);
+}
+
+// a warp a tile, lane l its 16 bytes l; D tiles in flight a warp
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+occ_gather_tile_kernel(const ulonglong2* __restrict__ table, const int32_t* __restrict__ idx,
                        int64_t n, int64_t rows, unsigned long long* __restrict__ out) {
+  static_assert(D <= 32, "a lane reads one index of the step");
   const int lane = threadIdx.x & 31;
   const int64_t warp = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
-  unsigned long long acc0 = 0, acc1 = 0;
-  for (int64_t i0 = warp * kGroup; i0 < n; i0 += warps * kGroup) {
-    longlong2 v[kGroup];
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  ulonglong2 acc{0, 0};
+  for (int64_t i0 = warp * D; i0 < n; i0 += warps * D) {
+    const int32_t mine = i0 + lane < n && lane < D ? idx[i0 + lane] : 0;
+    ulonglong2 v[D];
 #pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      const int64_t i = i0 + g;
-      if (i < n) {
-        const int32_t row = __ldg(idx + i);
-        if (row < 0 || row >= rows) __trap();
-        // tile row >> 3 is 32 longlong2 (512 bytes) long: lane q reads its 16 bytes
+    for (int g = 0; g < D; ++g) {
+      const int32_t row = __shfl_sync(kFull, mine, g);
+      if (i0 + g < n) {
+        check_row(row, rows);
+        // tile row >> 3 is 32 ulonglong2 (512 bytes) long: lane l reads its 16 bytes
         v[g] = __ldg(table + static_cast<int64_t>(row >> 3) * 32 + lane);
       } else {
-        v[g] = make_longlong2(0, 0);
+        v[g] = ulonglong2{0, 0};
       }
     }
 #pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      acc0 ^= static_cast<unsigned long long>(v[g].x);
-      acc1 ^= static_cast<unsigned long long>(v[g].y);
-    }
+    for (int g = 0; g < D; ++g) fold(acc, v[g]);
   }
-  atomicXor(out + 2 * lane, acc0);
-  atomicXor(out + 2 * lane + 1, acc1);
+  flush<32>(acc, out);
 }
 
-// enough blocks to fill the card, fewer when n is small; the loops stride
-int grid_for(int64_t n, int64_t per_block) {
+}  // namespace
+
+namespace {
+
+// the kernel of a launch: rows (8 * D indices a warp step) or tiles (D)
+template <bool kTile, int D>
+cudaError_t launch(const void* table, const int32_t* idx, int64_t n, int64_t rows,
+                   unsigned long long* out, cudaStream_t s) {
+  static_assert(D >= 1, "a depth of at least 1");
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t per_block = kWarps * (kTile ? D : 8 * D);
   const int64_t want = (n + per_block - 1) / per_block;
-  return static_cast<int>(want < 132 * 8 ? want : 132 * 8);
+  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
+  const unsigned grid = static_cast<unsigned>(want < cap ? want : cap);
+  const auto* t = static_cast<const ulonglong2*>(table);
+  if constexpr (kTile) {
+    occ_gather_tile_kernel<D><<<grid, kThreads, 0, s>>>(t, idx, n, rows, out);
+  } else {
+    occ_gather_row_kernel<D><<<grid, kThreads, 0, s>>>(t, idx, n, rows, out);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -133,31 +181,28 @@ extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // table: int64 [rows, 8] (64-byte rows); idx: int32 [n], each in [0, rows);
-// out: 8 int64, zeroed by the caller.  rows_in_flight: 2 or 8.
+// out: 8 int64, zeroed by the caller.  rows_in_flight: 2 or 8, the depth
+// OCC_ROW2_DEPTH or OCC_ROW8_DEPTH (rows in flight a quad of lanes).
 int occ_gather_row(const void* table, const int32_t* idx, int64_t n, int64_t rows,
                    int rows_in_flight, unsigned long long* out, void* stream) {
   if (rows_in_flight != 2 && rows_in_flight != 8) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* t = static_cast<const longlong2*>(table);
-  if (rows_in_flight == 2) {
-    occ_gather_row_kernel<2><<<grid_for(n, kThreads * 2), kThreads, 0, s>>>(t, idx, n, rows, out);
-  } else {
-    occ_gather_row_kernel<8><<<grid_for(n, kThreads * 8), kThreads, 0, s>>>(t, idx, n, rows, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = rows_in_flight == 2
+                              ? launch<false, OCC_ROW2_DEPTH>(table, idx, n, rows, out, s)
+                              : launch<false, OCC_ROW8_DEPTH>(table, idx, n, rows, out, s);
+  return static_cast<int>(err);
 }
 
 // table: int64 [rows, 8], rows a multiple of 8; idx: int32 [n] in [0, rows);
-// out: 64 int64 (one 512-byte tile), zeroed by the caller.
+// out: 64 int64 (one 512-byte tile), zeroed by the caller.  OCC_TILE_DEPTH
+// tiles in flight a warp.
 int occ_gather_tile(const void* table, const int32_t* idx, int64_t n, int64_t rows,
                     unsigned long long* out, void* stream) {
   if (rows % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  occ_gather_tile_kernel<<<grid_for(n, (kThreads / 32) * kGroup), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const longlong2*>(table), idx, n, rows, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch<true, OCC_TILE_DEPTH>(table, idx, n, rows, out, static_cast<cudaStream_t>(stream)));
 }
 
 const char* occ_gather_error_string(int err) {

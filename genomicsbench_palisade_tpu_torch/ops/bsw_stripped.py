@@ -22,10 +22,10 @@ e_ins, match, mismatch); the probe uses PARAMS.
 
 `bsw_stripped` dispatches on the device: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, whose wrapper (`bsw_stripped_cuda`)
-raises on anything else and counts its launches.  The kernel's instances
-cover qe_pad up to MAX_QE_PAD: the bsw_extend wrapper's query limit of 512,
-plus one, rounded up to 8 (above it the probe's prod side cannot run
-either).
+raises on anything else and counts its launches.  The kernel's register
+instances cover qe_pad up to MAX_REGISTER_QE_PAD (a query of 512 bases, the
+widest register instance of bsw_extend); above it a second kernel steps
+each target row over chunks of 512 query rows, so every qe_pad runs.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ PAD_CODE = 5  # query rows past the query
 # -DBSW_STRIPPED_LANES_<edge>
 LANES = {8: 8, 16: 8, 32: 16, 64: 8, 136: 8, 264: 16, 520: 32}
 EDGES = tuple(LANES)
-MAX_QE_PAD = EDGES[-1]  # qe_pad_of(512)
+MAX_REGISTER_QE_PAD = EDGES[-1]  # qe_pad_of(512)
+LONG_CHUNK = 512  # query rows a chunk of the long-column kernel (a warp a pair)
 
 
 def qe_pad_of(qlen: int) -> int:
@@ -55,7 +56,10 @@ def qe_pad_of(qlen: int) -> int:
 
 def layout(qe_pad: int) -> tuple:
     """(edge, lanes a pair, rows a lane) of the instance that `qe_pad` picks:
-    the first edge at or above it, K = ceil(edge / lanes)."""
+    the first edge at or above it, K = ceil(edge / lanes); past the widest,
+    the long-column kernel: (qe_pad rounded up to whole chunks, 32, 16)."""
+    if qe_pad > MAX_REGISTER_QE_PAD:
+        return -(-qe_pad // LONG_CHUNK) * LONG_CHUNK, 32, LONG_CHUNK // 32
     edge = next(e for e in EDGES if e >= qe_pad)
     return edge, LANES[edge], -(-edge // LANES[edge])
 
@@ -101,9 +105,6 @@ class BswStrippedKernel(CudaKernel):
         if q_codes.dim() != 2 or target.dim() != 2:
             raise ValueError(f"{self.name}: q_codes and target must be 2-D [rows, B]")
         qe_pad, b = q_codes.shape
-        if qe_pad > MAX_QE_PAD:
-            raise ValueError(f"{self.name}: qe_pad {qe_pad} is above the kernel's limit of "
-                             f"{MAX_QE_PAD} (a query of at most 512 bases)")
         require_cuda(self.name, dev)
         check_tensor(self.name, "q_codes", q_codes, dev, torch.int32)
         check_tensor(self.name, "target", target, dev, torch.int32, (target.shape[0], b))

@@ -7,7 +7,7 @@ CUDA kernels are csrc/occ_gather.cu.  The table is int64 [rows, 8], one
 int32.
 
   * `occ_gather_row(table, idx, rows_in_flight)`: int64 [8], the XOR of
-    rows idx[i] (2 or 8 rows in flight a thread; the probe's nslots).
+    rows idx[i] (2 or 8 rows in flight a quad of lanes; the probe's nslots).
   * `occ_gather_tile(table, idx)`: int64 [64], the XOR of the 512-byte
     groups of 8 rows starting at row 8 * (idx[i] >> 3) (the tile row the
     Pallas probe moved whole); the row count must be a multiple of 8
@@ -18,6 +18,11 @@ version (`index_select` on the table, then an XOR fold), a CUDA tensor to
 the kernel, whose wrapper (`occ_gather_row_cuda`, `occ_gather_tile_cuda`)
 raises on anything else and counts its launches.  Every index is folded:
 the Pallas grid dropped the last n % 512.
+
+Each launch's depth (rows in flight a quad of lanes, or tiles a warp:
+csrc/occ_gather.cu) comes from LAYOUTS, measured on the card by
+tools/gather_lanes.py, which builds the source with other depths through
+`defines`.
 """
 
 from __future__ import annotations
@@ -32,6 +37,17 @@ SOURCE = "occ_gather"
 ROW_WORDS = 8  # int64 words of a 64-byte row
 TILE_ROWS = 8  # rows of a 512-byte tile
 ROWS_IN_FLIGHT = (2, 8)
+# the depth of each launch: row2 and row8 are occ_gather_row with 2 and 8
+# rows in flight (rows a quad of lanes), tile is occ_gather_tile (tiles a
+# warp).  Measured on the card by tools/gather_lanes.py (PERF.md); built as
+# -DOCC_<ROW2|ROW8|TILE>_DEPTH.
+LAYOUTS = {"row2": 2, "row8": 8, "tile": 8}
+
+
+def layout_defines(layouts=None) -> tuple:
+    """The build's ("OCC_<LAUNCH>_DEPTH", depth) pairs: LAYOUTS with the
+    given launches' depths put over it."""
+    return tuple((f"OCC_{k.upper()}_DEPTH", d) for k, d in {**LAYOUTS, **(layouts or {})}.items())
 
 
 def xor_fold(rows: torch.Tensor) -> torch.Tensor:
@@ -76,11 +92,11 @@ def _check(name, table, idx, tile_rows=1):
 
 
 class OccGatherRowKernel(CudaKernel):
-    def __init__(self):
+    def __init__(self, layouts=None):
         super().__init__("occ_gather_row", SOURCE,
                          [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
-                         "occ_gather_error_string")
+                         "occ_gather_error_string", layout_defines(layouts))
 
     def __call__(self, table, idx, rows_in_flight=8) -> torch.Tensor:
         dev = _check(self.name, table, idx)
@@ -92,11 +108,11 @@ class OccGatherRowKernel(CudaKernel):
 
 
 class OccGatherTileKernel(CudaKernel):
-    def __init__(self):
+    def __init__(self, layouts=None):
         super().__init__("occ_gather_tile", SOURCE,
                          [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                           ctypes.c_void_p, ctypes.c_void_p],
-                         "occ_gather_error_string")
+                         "occ_gather_error_string", layout_defines(layouts))
 
     def __call__(self, table, idx) -> torch.Tensor:
         dev = _check(self.name, table, idx, TILE_ROWS)

@@ -1,8 +1,7 @@
-// CPU emulation of the CUDA features that csrc/bsw_extend.cu,
-// csrc/chain_dp.cu, csrc/phmm_forward.cu, csrc/abea_fill.cu and
-// csrc/abea_walk.cu use, so that their device code compiles with g++ and
-// runs on the CPU in tests/test_torch_kernel_emulation.py (cuda_pipeline.h
-// and math_constants.h beside this file stand in for the toolkit's).
+// CPU emulation of the CUDA features that the port's warp kernels
+// (csrc/*.cu) use, so that their device code compiles with g++ and runs on
+// the CPU in tests/test_torch_kernel_emulation.py (cuda_pipeline.h and
+// math_constants.h beside this file stand in for the toolkit's).
 //
 // A warp is 32 lanes run as fibers (ucontext) on one thread: a lane runs
 // until its next warp primitive (shuffle, vote, reduction, __syncwarp) and
@@ -43,11 +42,18 @@ struct alignas(8) int2 {
   int x, y;
 };
 inline int2 make_int2(int x, int y) { return int2{x, y}; }
+struct alignas(16) ulonglong2 {
+  unsigned long long x, y;
+};
+template <class T>
+inline T __ldg(const T* p) {  // the read-only load: a plain read here
+  return *p;
+}
 
 struct EmuDim {
   unsigned x = 0;
 };
-inline EmuDim blockIdx, blockDim, emu_thread[32];
+inline EmuDim blockIdx, blockDim, gridDim, emu_thread[32];  // gridDim: the harness sets it
 
 struct EmuWarp {
   ucontext_t sched, lane[32];
@@ -169,6 +175,13 @@ inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
 inline int __ffs(unsigned v) { return __builtin_ffs(static_cast<int>(v)); }
 inline unsigned atomicOr(unsigned* a, unsigned v) { return __atomic_fetch_or(a, v, __ATOMIC_SEQ_CST); }
+inline unsigned long long atomicXor(unsigned long long* a, unsigned long long v) {
+  return __atomic_fetch_xor(a, v, __ATOMIC_SEQ_CST);
+}
+[[noreturn]] inline void __trap() {
+  std::fprintf(stderr, "__trap\n");
+  std::abort();
+}
 // the round-to-nearest forms: separate roundings as long as the build does
 // not contract a*b+c (g++ -ffp-contract=off)
 inline double __ddiv_rn(double a, double b) { return a / b; }

@@ -1,7 +1,8 @@
 // Runs the device code of csrc/bsw_extend.cu (built with -DBSW),
 // csrc/phmm_forward.cu (-DPHMM), csrc/abea_fill.cu (-DABEA_FILL),
 // csrc/abea_walk.cu (-DABEA_WALK), csrc/bsw_stripped.cu (-DBSW_STRIPPED),
-// csrc/chain_micro.cu (-DCHAIN_MICRO) or csrc/chain_dp.cu (the text before
+// csrc/chain_micro.cu (-DCHAIN_MICRO), csrc/occ_gather.cu (-DOCC_GATHER) or
+// csrc/chain_dp.cu (the text before
 // the source's first "}  // namespace", included as KERNEL_PART) on the CPU
 // under cuda_runtime.h's warp emulation.  Reads the batch from a binary
 // file written by tests/test_torch_kernel_emulation.py and writes the
@@ -99,16 +100,47 @@ int abea_main(std::ifstream& f, const char* out_path) {
 #endif
 
 #ifdef BSW
-template <int E, int L>
+// csrc/bsw_extend.cu's launch: the register instance with_instance picks
+// for q_max <= 512 (its e_ins < 0 variant when e_ins < 0), a warp at a
+// time; above 512 the long-query kernel, a block of one warp a pair with
+// its rows in `smem`, or (scratch_warps > 0) a grid of that many warps
+// with their rows in a scratch vector, striding over the pairs.
 void run_bsw(const int8_t* codes, const int64_t* q_off, const int32_t* q_len, const int64_t* t_off,
-             const int32_t* t_len, const int32_t* h0, int32_t* out, int batch, Params p) {
-  constexpr int G = 32 / L;
-  const int warps = (batch + G - 1) / G;
-  for (int w = 0; w < warps; ++w) {
-    emu_run_warp(w, 32, 0, [&] {
-      bsw_extend_kernel<E / L, L>(codes, q_off, q_len, t_off, t_len, h0, out, batch, p);
-    });
+             const int32_t* t_len, const int32_t* h0, int32_t* out, int batch, int q_max,
+             int scratch_warps, Params p) {
+  if (q_max > 512) {
+    const int stride = long_stride(q_max);
+    const size_t region = 2 * static_cast<size_t>(stride);
+    std::vector<int32_t> scratch(scratch_warps > 0 ? region * scratch_warps : 0);
+    if (scratch.empty() && region > sizeof(smem) / sizeof(int32_t)) {
+      std::fprintf(stderr, "q_max %d: the rows pass the emulated shared memory\n", q_max);
+      std::exit(1);
+    }
+    const int grid = scratch_warps > 0 ? min(scratch_warps, batch) : batch;
+    gridDim.x = static_cast<unsigned>(grid);
+    for (int w = 0; w < grid; ++w) {
+      emu_run_warp(w, 32, 0, [&] {
+        bsw_extend_long_kernel<kChunkK>(codes, q_off, q_len, t_off, t_len, h0, out, batch, p,
+                                        stride, scratch.empty() ? nullptr : scratch.data());
+      });
+    }
+    return;
   }
+  with_instance(q_max, [&](auto edge, auto lanes) {
+    constexpr int E = decltype(edge)::value, L = decltype(lanes)::value;
+    constexpr int G = 32 / L;
+    const int warps = (batch + G - 1) / G;
+    for (int w = 0; w < warps; ++w) {
+      emu_run_warp(w, 32, 0, [&] {
+        if (p.e_ins < 0) {
+          bsw_extend_kernel<E / L, L, true>(codes, q_off, q_len, t_off, t_len, h0, out, batch, p);
+        } else {
+          bsw_extend_kernel<E / L, L, false>(codes, q_off, q_len, t_off, t_len, h0, out, batch, p);
+        }
+      });
+    }
+    return 0;
+  });
 }
 #endif
 
@@ -130,6 +162,15 @@ std::vector<int32_t> stripped_main(std::ifstream& f) {
   const auto e = read<int32_t>(f, cells);
   const auto t = read<int32_t>(f, static_cast<size_t>(tp) * batch);
   std::vector<int32_t> out(2 * cells, -777);
+  if (qe_pad > 520) {  // the long-column kernel: a warp a pair
+    for (int w = 0; w < batch; ++w) {
+      emu_run_warp(w, 32, 0, [&] {
+        bsw_stripped_long_kernel<kChunkK>(q.data(), t.data(), h.data(), e.data(), out.data(),
+                                          qe_pad, tp, batch, p);
+      });
+    }
+    return out;
+  }
   with_instance(qe_pad, [&](auto edge, auto lanes) {
     constexpr int L = decltype(lanes)::value;
     constexpr int G = 32 / L;
@@ -182,6 +223,54 @@ std::vector<int32_t> micro_main(std::ifstream& f) {
     default: std::apply(run_micro<8>, args); break;
   }
   return out;
+}
+#endif
+
+#ifdef OCC_GATHER
+// head: tile (0/1), depth, grid, n, rows; then the table int64 [rows, 8]
+// and idx int32 [n]; out: 8 or 64 int64.  The kernel at that depth (any of
+// tools/gather_lanes.py's sweep), grid blocks of kThreads, a warp at a time.
+template <bool kTile, int D>
+void run_layout(int grid, const ulonglong2* t, const int32_t* idx, int64_t n, int64_t rows,
+                unsigned long long* out) {
+  gridDim.x = static_cast<unsigned>(grid);
+  for (int b = 0; b < grid; ++b) {
+    for (int w = 0; w < kWarps; ++w) {
+      emu_run_warp(b, kThreads, 32 * w, [&] {
+        if constexpr (kTile) occ_gather_tile_kernel<D>(t, idx, n, rows, out);
+        else occ_gather_row_kernel<D>(t, idx, n, rows, out);
+      });
+    }
+  }
+}
+
+template <bool kTile>
+void run_depth(int depth, int grid, const ulonglong2* t, const int32_t* idx, int64_t n,
+               int64_t rows, unsigned long long* out) {
+  switch (depth) {
+    case 1: run_layout<kTile, 1>(grid, t, idx, n, rows, out); break;
+    case 2: run_layout<kTile, 2>(grid, t, idx, n, rows, out); break;
+    case 4: run_layout<kTile, 4>(grid, t, idx, n, rows, out); break;
+    case 8: run_layout<kTile, 8>(grid, t, idx, n, rows, out); break;
+    case 16: run_layout<kTile, 16>(grid, t, idx, n, rows, out); break;
+    default: std::fprintf(stderr, "depth %d\n", depth); std::exit(1);
+  }
+}
+
+std::vector<int32_t> occ_main(std::ifstream& f) {
+  const auto head = read<int64_t>(f, 5);
+  const bool tile = head[0] != 0;
+  const int depth = static_cast<int>(head[1]), grid = static_cast<int>(head[2]);
+  const int64_t n = head[3], rows = head[4];
+  const auto table = read<uint64_t>(f, static_cast<size_t>(rows) * 8);
+  const auto idx = read<int32_t>(f, static_cast<size_t>(n));
+  std::vector<unsigned long long> out(tile ? 64 : 8, 0);
+  const auto* t = reinterpret_cast<const ulonglong2*>(table.data());
+  if (tile) run_depth<true>(depth, grid, t, idx.data(), n, rows, out.data());
+  else run_depth<false>(depth, grid, t, idx.data(), n, rows, out.data());
+  std::vector<int32_t> bits(2 * out.size());
+  std::memcpy(bits.data(), out.data(), out.size() * sizeof(uint64_t));
+  return bits;
 }
 #endif
 
@@ -251,6 +340,8 @@ int main(int argc, char** argv) {
   return abea_main(f, argv[2]);
 #elif defined(BSW_STRIPPED)
   out = stripped_main(f);
+#elif defined(OCC_GATHER)
+  out = occ_main(f);
 #elif defined(CHAIN_MICRO)
   out = micro_main(f);
 #elif defined(PHMM)
@@ -270,12 +361,12 @@ int main(int argc, char** argv) {
     return 0;
   }
 #elif defined(BSW)
-  const auto head = read<int64_t>(f, 13);  // batch, codes, q_max, the 10 params
+  const auto head = read<int64_t>(f, 14);  // batch, codes, q_max, scratch warps, the 10 params
   const int batch = static_cast<int>(head[0]);
   const int q_max = static_cast<int>(head[2]);
   Params p{};
   int* fields = &p.o_del;
-  for (int k = 0; k < 10; ++k) fields[k] = static_cast<int>(head[3 + k]);
+  for (int k = 0; k < 10; ++k) fields[k] = static_cast<int>(head[4 + k]);
   const auto codes = read<int8_t>(f, static_cast<size_t>(head[1]));
   const auto q_off = read<int64_t>(f, batch);
   const auto q_len = read<int32_t>(f, batch);
@@ -283,13 +374,8 @@ int main(int argc, char** argv) {
   const auto t_len = read<int32_t>(f, batch);
   const auto h0 = read<int32_t>(f, batch);
   out.assign(6 * static_cast<size_t>(batch), -777);
-  const auto args = std::make_tuple(codes.data(), q_off.data(), q_len.data(), t_off.data(),
-                                    t_len.data(), h0.data(), out.data(), batch, p);
-  if (q_max <= 32) std::apply(run_bsw<32, BSW_LANES_32>, args);
-  else if (q_max <= 64) std::apply(run_bsw<64, BSW_LANES_64>, args);
-  else if (q_max <= 128) std::apply(run_bsw<128, BSW_LANES_128>, args);
-  else if (q_max <= 256) std::apply(run_bsw<256, BSW_LANES_256>, args);
-  else std::apply(run_bsw<512, BSW_LANES_512>, args);
+  run_bsw(codes.data(), q_off.data(), q_len.data(), t_off.data(), t_len.data(), h0.data(),
+          out.data(), batch, q_max, static_cast<int>(head[3]), p);
 #else
   const auto head = read<int64_t>(f, 5);  // anchors, calls, max_dist_x, max_dist_y, bw
   const int64_t n_total = head[0];

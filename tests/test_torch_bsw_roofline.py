@@ -159,19 +159,20 @@ def test_wrapper_refuses_cpu_tensors_and_dispatches_to_plain():
 
 
 def test_wrapper_refuses_qe_pad_above_the_kernels_limit():
-    """The kernel's widest instance takes qe_pad 520, qe_pad_of(512): the
-    bsw_extend wrapper's query limit.  Wider columns are refused before any
-    launch, on any device; the plain version takes them."""
-    assert S.MAX_QE_PAD == S.qe_pad_of(512) == 520
+    """The limit is gone: past the widest register instance (qe_pad 520,
+    qe_pad_of(512)) the long-column kernel takes any qe_pad, so the wrapper
+    refuses a column only for what it refuses at every qe_pad: a CPU tensor
+    raises "CUDA" before any launch; the plain version takes them."""
+    assert S.MAX_REGISTER_QE_PAD == S.qe_pad_of(512) == 520
     t = torch.zeros((24, 4), dtype=torch.int32)
-    edge, wide = (torch.zeros((qe, 4), dtype=torch.int32) for qe in (520, 528))
     before = S.bsw_stripped_cuda.launches
-    with pytest.raises(ValueError, match="CUDA"):  # 520 passes the limit
-        S.bsw_stripped_cuda(edge, t, edge, edge)
-    with pytest.raises(ValueError, match="qe_pad 528 is above the kernel's limit of 520"):
-        S.bsw_stripped_cuda(wide, t, wide, wide)
+    for qe in (520, 528, 4104):
+        col = torch.zeros((qe, 4), dtype=torch.int32)
+        with pytest.raises(ValueError, match="CUDA"):
+            S.bsw_stripped_cuda(col, t, col, col)
+        assert S.bsw_stripped(col, t, col, col).shape == (2, qe, 4)
     assert S.bsw_stripped_cuda.launches == before
-    assert S.bsw_stripped(wide, t, wide, wide).shape == (2, 528, 4)
+    assert S.layout(528) == (1024, 32, 16) and S.layout(1032) == (1536, 32, 16)
 
 
 def test_tool_runs_on_the_cpu_when_told(capsys, monkeypatch):

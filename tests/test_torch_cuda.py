@@ -231,13 +231,16 @@ def test_bsw_wrapper_checks_inputs(cuda):
         kernel(dict(tb, h0=tb["h0"][:2]), ptuple)
     with pytest.raises(ValueError, match="params"):
         kernel(tb, ptuple[:9])
-    with pytest.raises(ValueError, match="e_ins"):
-        kernel(tb, ptuple[:3] + (-1,) + ptuple[4:])
-    with pytest.raises(ValueError, match="512"):
-        kernel(tb, ptuple, q_max=513)
+    with pytest.raises(ValueError, match="q_max"):
+        kernel(tb, ptuple, q_max=-1)
     assert kernel.launches == before
     empty = {k: v if k == "codes" else v[:0] for k, v in tb.items()}
     assert kernel(empty, ptuple).shape == (6, 0)
+    # no longer refused: e_ins < 0 and q_max past the register instances
+    neg = ptuple[:3] + (-1,) + ptuple[4:]
+    assert torch.equal(kernel(tb, neg), W.bsw_extend_plain(tb, neg))
+    assert torch.equal(kernel(tb, ptuple, q_max=513), W.bsw_extend_plain(tb, ptuple))
+    assert kernel.launches == before + 2
 
 
 @pytest.mark.cuda
@@ -261,6 +264,51 @@ def test_bsw_edge_pairs_kernel_equal_to_plain(cuda, params):
         sub = {k: v if k == "codes" else v[idx] for k, v in tb.items()}
         got = W.bsw_extend(sub, ptuple, q_max=cli_bsw.EDGES[e])
         assert torch.equal(got, want[:, idx]), cli_bsw.EDGES[e]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [WO.DEFAULT_PARAMS, WO.BswParams(w=600),
+                                    WO.BswParams(e_ins=-1)], ids=["default", "w600", "e_ins-1"])
+def test_bsw_long_queries_kernel_equal_to_plain(cuda, params):
+    """64 pairs of 513-4,096 bases on the long-query kernel (rows in shared
+    memory), and 4 of 28,672-28,800 bases with targets of up to 1,500 (rows
+    in the global scratch)."""
+    rng = np.random.default_rng(14)
+    for pairs in (chip_smoke.bsw_long_pairs(rng, 64, 513, 4096),
+                  chip_smoke.bsw_long_pairs(rng, 4, 28_672, 28_800, t_hi=1500)):
+        tb, ptuple = bsw_batch_from_numpy(W.prepare_pairs(pairs, params), cuda, params)
+        before = bsw_cuda.bsw_extend.launches
+        got = W.bsw_extend(tb, ptuple)
+        torch.cuda.synchronize()
+        assert bsw_cuda.bsw_extend.launches == before + 1
+        assert torch.equal(got, W.bsw_extend_plain(tb, ptuple))
+
+
+@pytest.mark.cuda
+def test_bsw_long_query_tie_across_a_chunk_edge(cuda):
+    """o_ins + e_ins = 0 ties H(i, i) and H(i, i + 1); the best row, 511,
+    ties across the long-query kernel's first chunk edge (qle 513)."""
+    params = WO.BswParams(o_ins=-1, e_ins=1)
+    q = np.random.default_rng(7).integers(0, 4, 600).astype(np.int8)
+    tb, ptuple = bsw_batch_from_numpy(W.prepare_pairs([(q, q[:512], 30)], params), cuda, params)
+    got = W.bsw_extend(tb, ptuple)
+    assert torch.equal(got, W.bsw_extend_plain(tb, ptuple)) and int(got[1, 0]) == 513
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e_ins", [-1, -3])
+def test_bsw_negative_extension_edge_pairs_kernel_equal_to_plain(cuda, e_ins):
+    """chip_smoke.bsw_edge_pairs at e_ins < 0: through cli.bsw's buckets
+    (each on its edge's instance, the e_ins < 0 variant), whole on the
+    widest instance and on the long-query kernel."""
+    params = WO.BswParams(e_ins=e_ins)
+    pairs = chip_smoke.bsw_edge_pairs(np.random.default_rng(6), params.o_ins, e_ins)
+    tb, ptuple = bsw_batch_from_numpy(W.prepare_pairs(pairs, params), cuda, params)
+    want = W.bsw_extend_plain(tb, ptuple)
+    got = cli_bsw.score_pairs(pairs, params, device=cuda)
+    assert torch.equal(torch.from_numpy(np.stack([got[k] for k in W.OUT_ORDER])).to(cuda), want)
+    assert torch.equal(W.bsw_extend(tb, ptuple, q_max=512), want)
+    assert torch.equal(W.bsw_extend(tb, ptuple, q_max=2048), want)
 
 
 @pytest.mark.cuda
@@ -506,6 +554,25 @@ def test_occ_gather_kernels_equal_to_plain(cuda, n):
 
 
 @pytest.mark.cuda
+def test_occ_gather_every_sweep_layout_equal_to_plain(cuda):
+    """Every depth tools/gather_lanes.py can build, on 100,003 indices that
+    include rows 0 and rows - 1."""
+    from genomicsbench_palisade_tpu_torch.tools import build_all, gather_lanes
+    table, idx = _gather_inputs(5, 8 * 4097, 100_003, cuda)
+    idx[0], idx[-1] = 0, table.shape[0] - 1
+    want_row, want_tile = G.occ_gather_row_plain(table, idx), G.occ_gather_tile_plain(table, idx)
+    sets = [dict.fromkeys(G.LAYOUTS, d) for d in gather_lanes.DEPTHS]
+    rows = [G.OccGatherRowKernel(lay) for lay in sets]
+    tiles = [G.OccGatherTileKernel(lay) for lay in sets]
+    build_all(rows)
+    for row_k, tile_k in zip(rows, tiles):
+        for r in G.ROWS_IN_FLIGHT:
+            assert torch.equal(row_k(table, idx, r), want_row), (row_k.defines, r)
+        assert torch.equal(tile_k(table, idx), want_tile), tile_k.defines
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_occ_gather_wrappers_check_inputs(cuda):
     table, idx = _gather_inputs(1, 8 * 64, 100, cuda)
     row_k, tile_k = G.occ_gather_row_cuda, G.occ_gather_tile_cuda
@@ -575,12 +642,13 @@ def test_fmi_cli_on_card(cuda, tmp_path, capsys):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("start", ["zero", "seeded", "int32_max", "h_max_e_small"])
-@pytest.mark.parametrize("ql", [45, 7, 15, 128, 263, 512])
+@pytest.mark.parametrize("ql", [45, 7, 15, 128, 263, 512, 527, 1031])
 def test_bsw_stripped_kernel_equal_to_plain(cuda, start, ql):
     """The whole final H and E, from starts that wrap and starts that do
     not, at queries that are not a multiple of 8 (qe_pad 48, with padding
-    slots) and at the kernel's instance edges (qe_pad 8, 16, 136, 264, 520),
-    and a batch that leaves lanes idle.  Each query is its target's head
+    slots), at the kernel's instance edges (qe_pad 8, 16, 136, 264, 520),
+    past them on the long-column kernel (qe_pad 528 and 1032), and a batch
+    that leaves lanes idle.  Each query is its target's head
     with 8% substituted, as in the probe, so that a nonzero start's main
     diagonal keeps scoring."""
     rng = np.random.default_rng(21 + ql)
@@ -625,9 +693,11 @@ def test_bsw_stripped_wrapper_checks_inputs(cuda):
     with pytest.raises(ValueError, match="6 ints"):
         kernel(z, z, z, z, (6, 1, 6, 1))
     big = torch.zeros((528, 64), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="520"):
-        kernel(big, z, big, big)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(big.cpu(), z.cpu(), big.cpu(), big.cpu())
     assert kernel.launches == before
+    assert torch.equal(kernel(big, z, big, big), BS.bsw_stripped_plain(big, z, big, big))
+    assert kernel.launches == before + 1
     assert kernel(z[:, :0], z[:, :0], z[:, :0], z[:, :0]).shape == (2, 16, 0)
 
 

@@ -1,11 +1,12 @@
 """The device code of the port's warp kernels, csrc/bsw_extend.cu,
 csrc/chain_dp.cu, csrc/phmm_forward.cu, csrc/abea_fill.cu,
-csrc/abea_walk.cu, csrc/bsw_stripped.cu and csrc/chain_micro.cu, compiled
-with g++ and run on the CPU under a warp
+csrc/abea_walk.cu, csrc/bsw_stripped.cu, csrc/chain_micro.cu and
+csrc/occ_gather.cu, compiled with g++ and run on the CPU under a warp
 emulation (tests/cuda_emulation/: a warp's 32 lanes as fibers on one
 thread, every shuffle, vote and reduction a point where all 32 post and
 then read; cp.async copies made at their wait, the latest the card may
-make them), against the plain versions.
+make them),
+against the plain versions.
 
 The card is the only place the kernels run for real (tests/test_torch_cuda.py,
 chip_smoke.py); this holds their lane logic (the F chain's map scan, the
@@ -13,7 +14,9 @@ row max's ballots, the band shrink, the max_skip walk, the mark bitmap, the
 register banks, PairHMM's wavefront, virtual rows and tile carry, the abea
 fill's band on shuffles and early emissions, the abea walk's shared-memory
 windows, the stripped recurrence's max-scan and roll, the micro chain's
-register and shared rings) to the plain versions on every CPU run.  The build uses
+register and shared rings, bsw's long-query chunks and e_ins < 0
+variant, the stripped long-column chunks, the gathers' quads of lanes and
+tile steps) to the plain versions on every CPU run.  The build uses
 -fsanitize=undefined, so a signed overflow aborts the run.
 
 Tolerance: none.  bsw and chain compute in int32.  PairHMM and abea round
@@ -46,6 +49,7 @@ from genomicsbench_palisade_tpu_torch.ops import bsw_stripped as BS
 from genomicsbench_palisade_tpu_torch.ops import events as EV
 from genomicsbench_palisade_tpu_torch.ops import chain as C
 from genomicsbench_palisade_tpu_torch.ops import chain_micro as CM
+from genomicsbench_palisade_tpu_torch.ops import occ_gather as G
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as WO
 from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as PO
@@ -70,7 +74,7 @@ def one_thread():
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """{"bsw", "chain", "phmm", "abea_fill", "abea_walk", "bsw_stripped",
-    "chain_micro"}: the emulated kernels' executables."""
+    "chain_micro", "occ_gather"}: the emulated kernels' executables."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the emulated kernels")
@@ -88,7 +92,8 @@ def emulated(tmp_path_factory):
                                ("bsw_stripped", "bsw_stripped.cu",
                                 ["-DBSW_STRIPPED", *lanes(BS.bsw_stripped_cuda)]),
                                ("chain_micro", "chain_micro.cu",
-                                ["-DCHAIN_MICRO", *lanes(CM.chain_micro_cuda)])):
+                                ["-DCHAIN_MICRO", *lanes(CM.chain_micro_cuda)]),
+                               ("occ_gather", "occ_gather.cu", ["-DOCC_GATHER"])):
         text = (CSRC / src).read_text()
         part = out / f"{name}_device.inc"
         part.write_text(text[: text.index(MARK) + len(MARK)])
@@ -116,8 +121,9 @@ def _run(exe, tmp_path, arrays, n_out):
     return torch.from_numpy(np.fromfile(dst, np.int32).reshape(n_out, -1))
 
 
-def _bsw(exe, tmp_path, tb, ptuple, q_max):
-    head = np.array([tb["h0"].numel(), tb["codes"].numel(), q_max, *ptuple], np.int64)
+def _bsw(exe, tmp_path, tb, ptuple, q_max, scratch_warps=0):
+    head = np.array([tb["h0"].numel(), tb["codes"].numel(), q_max, scratch_warps, *ptuple],
+                    np.int64)
     keys = ("codes", "q_off", "q_len", "t_off", "t_len", "h0")
     return _run(exe, tmp_path, [head, *(tb[k].numpy() for k in keys)], 6)
 
@@ -148,6 +154,100 @@ def test_bsw_emulated_goldens(emulated, tmp_path, fixtures_dir):
     bad = [i for i, c in enumerate(cases)
            if {k: int(got[r, i]) for r, k in enumerate(W.OUT_ORDER)} != c["out"]]
     assert len(cases) == 300 and not bad, bad
+
+
+@pytest.mark.parametrize("name,params,scratch_warps", [
+    ("default", WO.DEFAULT_PARAMS, 0),
+    ("w600", WO.BswParams(w=600), 0),
+    ("default_scratch", WO.DEFAULT_PARAMS, 3),
+    ("e_ins_-1_scratch", WO.BswParams(e_ins=-1), 3)])
+def test_bsw_emulated_long_queries(emulated, tmp_path, name, params, scratch_warps):
+    """The long-query kernel on 12 pairs of 513-1,024 bases (targets of 1-2
+    query lengths): its rows in shared memory, or in a scratch of 3 warps'
+    regions that the grid strides over (scratch_warps 3); w 600 gives bands
+    of 1,201 entries across chunk edges."""
+    pairs = chip_smoke.bsw_long_pairs(np.random.default_rng(12), 12, 513, 1024)
+    tb, ptuple = bsw_batch_from_numpy(W.prepare_pairs(pairs, params), "cpu", params)
+    want = W.bsw_extend_plain(tb, ptuple)
+    got = _bsw(emulated["bsw"], tmp_path, tb, ptuple, int(tb["q_len"].max()), scratch_warps)
+    assert torch.equal(got, want)
+    assert (want[1] > 512).any()  # best cells past the first chunk
+
+
+def test_bsw_emulated_long_query_tie_across_a_chunk_edge(emulated, tmp_path):
+    """o_ins + e_ins = 0 makes F carry a row's M forward, so H(i, i) and
+    H(i, i + 1) tie: a target of 512 bases, the head of its 600-base query,
+    scores best on row 511, where the tie spans the long-query kernel's
+    first chunk edge and the later entry (qle 513) must win."""
+    params = WO.BswParams(o_ins=-1, e_ins=1)
+    q = np.random.default_rng(7).integers(0, 4, 600).astype(np.int8)
+    tb, ptuple = bsw_batch_from_numpy(W.prepare_pairs([(q, q[:512], 30)], params), "cpu", params)
+    want = W.bsw_extend_plain(tb, ptuple)
+    assert want[:3, 0].tolist() == [30 + 512, 513, 512]
+    assert torch.equal(_bsw(emulated["bsw"], tmp_path, tb, ptuple, 600), want)
+
+
+@pytest.mark.parametrize("e_ins", [-1, -3])
+def test_bsw_emulated_negative_extension_on_edge_pairs(emulated, tmp_path, e_ins):
+    """chip_smoke.bsw_edge_pairs at e_ins -1 and -3: each query edge's pairs
+    on its edge's instance (the e_ins < 0 variant), and all of them on the
+    long-query kernel (q_max 600)."""
+    params = WO.BswParams(e_ins=e_ins)
+    pairs = chip_smoke.bsw_edge_pairs(np.random.default_rng(5), params.o_ins, e_ins)
+    tb, ptuple = bsw_batch_from_numpy(W.prepare_pairs(pairs, params), "cpu", params)
+    want = W.bsw_extend_plain(tb, ptuple)
+    edges = np.searchsorted(np.asarray(EDGES), tb["q_len"].numpy())
+    for e in np.unique(edges):
+        idx = torch.from_numpy(np.flatnonzero(edges == e))
+        sub = {k: v if k == "codes" else v[idx] for k, v in tb.items()}
+        got = _bsw(emulated["bsw"], tmp_path, sub, ptuple, EDGES[e])
+        assert torch.equal(got, want[:, idx]), EDGES[e]
+    assert torch.equal(_bsw(emulated["bsw"], tmp_path, tb, ptuple, 600), want)
+
+
+OCC_ROWS = 4096
+
+
+def _occ(exe, tmp_path, tile, depth, grid, table, idx):
+    head = np.array([tile, depth, grid, len(idx), OCC_ROWS], np.int64)
+    return _run(exe, tmp_path, [head, table, idx], 1).view(torch.int64)[0]
+
+
+def _occ_layouts():
+    """(kernel, depth) of every depth the wrapper's table or the sweep
+    (tools/gather_lanes.py) can build."""
+    from genomicsbench_palisade_tpu_torch.tools import gather_lanes as GL
+    depths = set(GL.DEPTHS) | set(G.LAYOUTS.values())
+    return [(kernel, d) for kernel in ("row", "tile") for d in sorted(depths)]
+
+
+@pytest.mark.parametrize("kernel,depth", _occ_layouts())
+def test_occ_gather_emulated_equals_plain(emulated, tmp_path, kernel, depth):
+    """csrc/occ_gather.cu at a depth on a table of 4,096 random rows, with n
+    = 1, 1,000 and 2,053 indices (a multiple of no step or block) that start
+    with rows 4,095 and 0, on grids of 1 and 3 blocks of 8 warps."""
+    rng = np.random.default_rng(depth + 10 * (kernel == "tile"))
+    table = rng.integers(-(2**63), 2**63 - 1, (OCC_ROWS, 8), dtype=np.int64, endpoint=True)
+    plain = G.occ_gather_tile_plain if kernel == "tile" else G.occ_gather_row_plain
+    for n in (1, 1000, 2053):
+        idx = rng.integers(1, OCC_ROWS - 1, n).astype(np.int32)
+        idx[:2] = (OCC_ROWS - 1, 0)[:n]  # both ends of the table; the last index stays random
+        want = plain(torch.from_numpy(table), torch.from_numpy(idx))
+        for grid in (1, 3):
+            got = _occ(emulated["occ_gather"], tmp_path, kernel == "tile", depth, grid, table, idx)
+            assert torch.equal(got, want), (n, grid)
+
+
+@pytest.mark.parametrize("tile", [0, 1])
+def test_occ_gather_emulated_traps_an_index_outside_the_table(emulated, tmp_path, tile):
+    table = np.zeros((OCC_ROWS, 8), np.int64)
+    idx = np.array([5, OCC_ROWS, 7], np.int32)
+    head = np.array([tile, 2, 1, len(idx), OCC_ROWS], np.int64)
+    src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
+    src.write_bytes(b"".join(a.tobytes() for a in (head, table, idx)))
+    proc = subprocess.run([str(emulated["occ_gather"]), str(src), str(dst)], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode != 0 and "__trap" in proc.stderr
 
 
 def test_chain_emulated_equals_plain_on_edge_calls(emulated, tmp_path):
@@ -337,10 +437,12 @@ def test_abea_emulated_equal_plain_on_golden_reads(emulated, tmp_path):
 
 
 
-@pytest.mark.parametrize("qe_pad", [8, 16, 32, 64, 136, 264, 520])
+@pytest.mark.parametrize("qe_pad", [8, 16, 32, 64, 136, 264, 520, 528, 1032])
 def test_bsw_stripped_emulated_equals_plain(emulated, tmp_path, qe_pad):
     """Each instance of csrc/bsw_stripped.cu at its qe_pad edge (every slot
-    of its lanes a query row, or the slots past qe_pad padding), 21 target
+    of its lanes a query row, or the slots past qe_pad padding), and the
+    long-column kernel past 520 (two chunks and a row past them, three
+    chunks with the last part padding), 21 target
     rows (not a multiple of the group), on chip_smoke.strip_edge_batch: its
     four starts side by side (zero, seeded, INT32_MAX, H near INT32_MAX
     with E small), three pairs each, so that a warp of pairs is left part
