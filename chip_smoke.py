@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's PairHMM, bsw, chain, abea and fmi paths and its
-occ-gather, bsw roofline and chain roofline probes on one GPU and hold their
-kernels to their plain PyTorch versions.
+"""Drive the PyTorch/CUDA port's PairHMM, bsw, chain, abea (read-coordinate and
+eventalign modes) and fmi paths and its occ-gather, bsw roofline and chain
+roofline probes on one GPU and hold their kernels to their plain PyTorch
+versions.
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, run in the order 1, 2, 11, 12, 3-10, 13-15 (any failure exits
+Phases, run in the order 1, 2, 11, 12, 3-10, 16, 13-15 (any failure exits
 non-zero and prints no result):
   1. environment: Python, torch, CUDA, nvcc and the card (nvidia-smi);
   2. build csrc/phmm_forward.cu, csrc/bsw_extend.cu, csrc/chain_dp.cu,
@@ -71,10 +72,12 @@ non-zero and prints no result):
      and read just after; phase split, the median of three runs, end-to-end
      anchors/s (parse plus the median run); the run once more under
      torch.profiler; the CLI's output file for the dump's first 50 calls
-     against print_return of the pooled results; every output of the
-     counted run against the plain version on the same device tensors
-     (tolerance 0: integers), which also counts the predecessors for the
-     bound; the kernel timed on the main path's launch; the 25 + 6
+     against print_return of the pooled results; the counted run's
+     outputs of every call of up to 16,384 anchors (CHAIN_PLAIN_MAX_N;
+     ~77% of the calls) against the plain version on the same device
+     tensors (tolerance 0: integers), which also counts their predecessors
+     for the bound; the kernel timed on the main path's launch and on
+     those calls as one launch (the kernels line's figures); the 25 + 6
      reference goldens through `run_calls` on the card; up to 8 calls of
      the dump with n <= 1500 against the port's oracle (exactly);
   9. the abea kernels (fill and walk) against their plain versions on the
@@ -99,9 +102,12 @@ non-zero and prints no result):
      after; phase split, events/s end to end (load + prep + the median
      run), the TSV emit timed apart; the run once more under
      torch.profiler; the CLI's output for the first 20 reads against the
-     TSV of the pooled pairs; every output of the counted run against the
-     plain versions on the same device tensors; the 25 abea goldens on the
-     card; the batch's 8 shortest reads against the port's oracle;
+     TSV of the pooled pairs; the counted run's outputs of every read of
+     up to 4,000 bases (ABEA_PLAIN_MAX_BASES) against the plain versions
+     on the same device tensors; the kernels timed on the main path's
+     launch and on those reads as one launch (the kernels line's
+     figures); the 25 abea goldens on the card; the batch's 8 shortest
+     reads against the port's oracle;
  11. the occ-gather probes, cell occ-gather-4m: the probe tool
      (`tools.occ_gather_experiment.run`) on its workload (4,000,000 random
      64-byte rows, 256 MB, rng seed 3; 16,384 indices), launch counts reset
@@ -163,6 +169,26 @@ non-zero and prints no result):
      against its plain version at windows 1, 33, 129, 257 and 700 on the
      calls of `micro_edge_calls` (phantom predecessors, slopes whose
      products wrap);
+ 16. the eventalign main path, cell eventalign-512 (run after phase 10):
+     abea-512's reads and signals (seeded from --seed) laid into one
+     contig, every other read reverse complemented, with 50-499 random
+     bases between reads and 1-3 insertions or deletions and a soft clip
+     in each read's cigar; 16 unmapped, 16 MAPQ-5 and 16 secondary records
+     besides (`write_eventalign_dataset`); a sorted BAM and its .bai
+     written with the port's io.bam, the genome, a FASTQ, the npz and the
+     model; load, `cli.abea.load_bam`, `bam_entries` and one f5c batch (-K
+     512 -B 3.7M) through `cli.abea.eventalign_batch` on the card, launch
+     counts reset just before and read just after (one fill and one walk);
+     the phase split (load, BAM, events, MoM, the kernels, scaling and QC,
+     the realign with its window steps = host syncs and wavefront steps,
+     the emit), TSV rows/s and events/s end to end, the entry counts; -w
+     over chr1's first 100 kb through the .bai (the same records as the
+     record filter), its rows inside the region and its 2 shortest reads
+     equal to the port's oracle with the region's bounds; the batch's 8
+     shortest reads through `ops.eventalign.realign_batch` on the card and
+     on the CPU against the main run's and the port's oracle, exactly; the
+     25 eventalign goldens through `eventalign_batch` on the card, every
+     status, scaling, summary and TSV row exactly;
  15. the abea chain cost: per abea cell the ns and SM cycles (at the
      median clock of phases 13-14) a band of the fill and a step of the
      walk, and the chain floors; each kernel's device seconds over one
@@ -171,8 +197,9 @@ non-zero and prints no result):
      {"ok": true, "device": {...}}.
 Every measurement is printed as it is taken.  Needs one CUDA card; without
 one it exits 1.  The bsw dataset (~3.8 GB), the chain dump (~236 MB), the
-abea signals (~118 MB) and the fmi reads and index npz (~0.5 GB) are
-written under build/ beside this script and deleted at the end.
+abea signals (~118 MB, twice: phases 10 and 16) and the fmi reads and
+index npz (~0.5 GB) are written under build/ beside this script and
+deleted at the end.
 """
 
 from __future__ import annotations
@@ -254,6 +281,16 @@ ABEA_LENS = (1000, 13450)  # 3,698,945 bases: -B 3.7M of the reference's GPU run
 ABEA_MAX_BASES = "3.7M"  # -B of the reference's GPU run (scripts/run-gpu.sh:32)
 ABEA_CLI_READS = 20
 ABEA_ORACLE_READS = 8
+# the main paths' outputs held to the plain versions: chain-1001's calls of
+# up to CHAIN_PLAIN_MAX_N anchors (the plain version steps once per anchor
+# of its longest call) and abea-512's reads of up to ABEA_PLAIN_MAX_BASES
+# bases (once per band of its longest read)
+CHAIN_PLAIN_MAX_N = 16_384
+ABEA_PLAIN_MAX_BASES = 4_000
+EA_DROPPED = 16  # eventalign-512's records of each kind f5c's filters drop
+EA_SPACER = (50, 500)  # random bases between two reads in its genome
+EA_WINDOW = "chr1:1-100000"  # the -w region read through the .bai
+EA_ORACLE_READS = 8
 # operations of csrc/abea_fill.cu a valid cell: f32 6 for the emission
 # (two subtractions, the division, two multiplications, the addition) and 4
 # compares; f64 4 conversions in, 5 additions, 3 conversions out
@@ -857,6 +894,85 @@ def write_abea_dataset(fasta, npz, model_tsv, lengths, rng) -> int:
     return total
 
 
+def revcomp(seq: str) -> str:
+    return seq.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+
+
+def write_eventalign_dataset(tmp: Path, lengths, rng, bam) -> dict:
+    """eventalign-512's inputs under `tmp`: golden_reads of `lengths` (from
+    the same rng, abea-512's reads and signals) laid into one contig, chr1,
+    every other read as its reverse complement, 50-499 random bases between
+    two reads; each read's cigar a soft clip of 0-19 bases and 1-3
+    insertions or deletions of 1-5 bases, on a 50-base grid; besides,
+    EA_DROPPED each of unmapped, MAPQ-5 and secondary records (the last two
+    copies of reads, beside them).  Writes reads.bam and its .bai (`bam`,
+    the port's io.bam), genome.fa, reads.fq, signals.npz and pore.tsv;
+    returns counts."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    nt16 = np.zeros(256, np.uint8)
+    nt16[acgt] = [1, 2, 4, 8]
+
+    def rand(n):
+        return acgt[rng.integers(0, 4, n)].tobytes().decode()
+
+    genome, glen, records, signals = [], 0, [], {}
+    with open(tmp / "reads.fq", "w") as fq:
+        for r, (seq, sig) in enumerate(golden_reads(lengths, rng)):
+            name = f"read{r}"
+            signals[name] = sig
+            fq.write(f"@{name}\n{seq}\n+\n{'5' * len(seq)}\n")
+            g = revcomp(seq) if r % 2 else seq
+            spacer = rand(int(rng.integers(*EA_SPACER)))
+            genome.append(spacer)
+            glen += len(spacer)
+            clip = int(rng.integers(0, 20))
+            cigar, pos, cur, nm = ([("S", clip)] if clip else []), glen, clip, 0
+            for p in np.sort(rng.choice(np.arange(200, len(g) - 200, 50), int(rng.integers(1, 4)),
+                                        replace=False)).tolist():
+                ln = int(rng.integers(1, 6))
+                genome.append(g[cur:p])
+                glen += p - cur
+                cigar.append(("M", p - cur))
+                if rng.random() < 0.5:
+                    cigar.append(("I", ln))
+                    cur = p + ln
+                else:
+                    genome.append(rand(ln))
+                    glen += ln
+                    cigar.append(("D", ln))
+                    cur = p
+                nm += ln
+            genome.append(g[cur:])
+            glen += len(g) - cur
+            cigar.append(("M", len(g) - cur))
+            codes = nt16[np.frombuffer(g.encode(), np.uint8)]
+            records.append(bam.BamRecord(name, bam.FREVERSE if r % 2 else 0, 0, pos, 60, cigar,
+                                         codes, np.full(len(g), 30, np.uint8), {"NM": nm}))
+    step = len(records) // EA_DROPPED
+    out = []
+    for j, r in enumerate(records):
+        out.append(r)
+        if j % step == 0 and j // step < EA_DROPPED:
+            i = j // step
+            out.append(bam.BamRecord(f"lowmapq{i}", r.flag, 0, r.pos, 5, r.cigar, r.seq_nt16,
+                                     r.qual, {"NM": 0}))
+            out.append(bam.BamRecord(r.name, r.flag | bam.FSECONDARY, 0, r.pos, 60, r.cigar,
+                                     r.seq_nt16, r.qual, r.tags))
+    for i in range(EA_DROPPED):
+        codes = nt16[acgt[rng.integers(0, 4, 100)]]
+        out.append(bam.BamRecord(f"unmapped{i}", bam.FUNMAP, -1, -1, 0, [], codes,
+                                 np.full(100, 30, np.uint8), {}))
+    bam.write_bam(str(tmp / "reads.bam"), [("chr1", glen)], out)
+    bam.build_bai(str(tmp / "reads.bam"))
+    (tmp / "genome.fa").write_text(">chr1\n" + "".join(genome) + "\n")
+    np.savez(tmp / "signals.npz", **signals)
+    write_pore_model(tmp / "pore.tsv")
+    return {"records": len(out), "reads": len(records), "genome_bases": glen,
+            "bases": int(np.sum(lengths)),
+            "samples": sum(len(s) for s in signals.values()),
+            "bam_mb": (tmp / "reads.bam").stat().st_size / 1e6}
+
+
 def synth_reference_codes(mbp: int, rng) -> np.ndarray:
     """tools/genome_scale_fmi.py:synth_reference's bases, as codes 0-3
     (uint8): `mbp` million uniform bases drawn 4 Mi at a time from `rng`
@@ -1136,6 +1252,7 @@ class Port:
                                                               fmi_index_from_numpy)
         from genomicsbench_palisade_tpu_torch.index import builder as fmi_builder
         from genomicsbench_palisade_tpu_torch.index import fmi_index
+        from genomicsbench_palisade_tpu_torch.io import bam
         from genomicsbench_palisade_tpu_torch.io import signal as abea_signal
         from genomicsbench_palisade_tpu_torch.io import chain_dump
         from genomicsbench_palisade_tpu_torch.io.pairs import parse_pairs_soa
@@ -1153,10 +1270,12 @@ class Port:
         from genomicsbench_palisade_tpu_torch.ops import occ_gather
         from genomicsbench_palisade_tpu_torch.ops import phmm as P
         from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
+        from genomicsbench_palisade_tpu_torch.ops import eventalign as EA
         from genomicsbench_palisade_tpu_torch.ops import events as abea_events
         from genomicsbench_palisade_tpu_torch.ops.oracle import abea as abea_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as bsw_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import chain as chain_oracle
+        from genomicsbench_palisade_tpu_torch.ops.oracle import eventalign as ea_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import fmi as fmi_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as oracle
         from genomicsbench_palisade_tpu_torch import tools
@@ -1180,7 +1299,7 @@ class Port:
                           fmi_pipeline=fmi_pipeline, occ_gather=occ_gather,
                           fmi_oracle=fmi_oracle, occ_tool=occ_tool, bsw_stripped=bsw_stripped,
                           chain_micro=chain_micro, bsw_probe=bsw_probe, chain_probe=chain_probe,
-                          tools=tools)
+                          tools=tools, bam=bam, EA=EA, ea_oracle=ea_oracle)
         self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend, chain_cuda.chain_dp,
                         *abea_cuda.KERNELS, *occ_gather.KERNELS, *bsw_stripped.KERNELS,
                         *chain_micro.KERNELS]
@@ -1795,39 +1914,43 @@ def chain_phases(torch, port: Port, rec: Record, seed: int):
         log(f"chain CLI: the output file of {CHAIN_CLI_CALLS} calls equals print_return of the "
             f"pooled results ({out_file.stat().st_size} bytes; {err_buf.getvalue().strip()})")
 
-    # every output of the counted run against the plain version on the same
-    # device tensors; the plain version counts the predecessors
-    seen = {"launches": 0, "anchors": 0, "plain_s": 0.0}
-    for kb in kept:
-        st = {}
-        plain_ms, want = time_ms(torch, lambda: C.chain_dp_plain(kb["batch"], kb["params"],
-                                                                 stats=st), 1)
-        rec.check(name, max_abs_diff(torch, kb["out"], want), f"main-path launch {kb['params']}")
-        kb.update(plain_ms=plain_ms, stats=st)
-        seen["launches"] += 1
-        seen["anchors"] += kb["out"].shape[1]
-        seen["plain_s"] += plain_ms * 1e-3
-        for k, v in st.items():
-            seen[k] = max(seen.get(k, 0), v) if k == "predecessors_max_call" else seen.get(k, 0) + v
-    if seen["launches"] != len(kept) or seen["anchors"] != anchors:
-        fail(f"the plain check saw {seen['launches']} launches and {seen['anchors']} anchors")
-    log("chain main path vs plain, every output " + json.dumps(seen))
-    if not (e2e["scores_nonzero_share"] > 0 and e2e["parents_share"] > 0 and seen["breaks"] > 0):
+    # the counted run's outputs of every call of up to CHAIN_PLAIN_MAX_N
+    # anchors against the plain version on the same device tensors; the
+    # plain version counts the predecessors
+    if len(kept) != 1:
+        fail(f"the chain main path made {len(kept)} launches: one expected")
+    kb = kept[0]
+    n_calls = kb["batch"]["n"].cpu().numpy()
+    sel = torch.from_numpy(np.nonzero(n_calls <= CHAIN_PLAIN_MAX_N)[0]).to(DEVICE)
+    sub, cols = chain_subset(torch, kb["batch"], sel)
+    st = {}
+    plain_ms, want = time_ms(torch, lambda: C.chain_dp_plain(sub, kb["params"], stats=st), 1)
+    rec.check(name, max_abs_diff(torch, kb["out"][:, cols], want),
+              f"main-path calls of up to {CHAIN_PLAIN_MAX_N} anchors")
+    seen = {"calls": int(sel.numel()), "of_calls": len(n_calls), "anchors": int(cols.numel()),
+            "of_anchors": anchors, "max_n": int(n_calls[n_calls <= CHAIN_PLAIN_MAX_N].max()),
+            "plain_s": plain_ms * 1e-3, **st}
+    log("chain main path vs plain, calls up to the cut " + json.dumps(seen))
+    if not (e2e["scores_nonzero_share"] > 0 and e2e["parents_share"] > 0 and st["breaks"] > 0):
         fail("the chain main path's calls did not score, chain and break: the check would "
              "hold nothing")
 
-    # the kernel on the main path's largest launch
-    kb = max(kept, key=lambda kb: kb["out"].shape[1])
-    ms, got = time_ms(torch, lambda: C.chain_dp(kb["batch"], kb["params"]), 3)
+    # the kernel on the main path's launch, and on those calls alone (the
+    # kernels line's figures: the plain time and the bound are theirs)
+    full_ms, got = time_ms(torch, lambda: C.chain_dp(kb["batch"], kb["params"]), 3)
     rec.check(name, max_abs_diff(torch, got, kb["out"]), "a rerun of the main path's launch")
-    n_launch = kb["out"].shape[1]
-    bms, by = chain_bound(n_launch, kb["batch"]["n"].numel(), kb["params"][2], kb["stats"])
-    row = {"shape": f"{kb['batch']['n'].numel()} calls, {n_launch} anchors", "ms": ms,
-           "plain_ms": kb["plain_ms"], "anchors_per_s": n_launch / (ms * 1e-3), **kb["stats"],
-           "predecessors_per_s": kb["stats"]["predecessors"] / (ms * 1e-3),
-           "bound_ms": bms, "bound_by": by}
-    log(f"{name} on the main path's launch " + json.dumps(row))
-    rec.kern[name].update(ms=ms, plain_ms=kb["plain_ms"], bound_ms=bms, bound_by=by)
+    ms, got = time_ms(torch, lambda: C.chain_dp(sub, kb["params"]), 3)
+    rec.check(name, max_abs_diff(torch, got, want), "the cut's calls as one launch")
+    bms, by = chain_bound(seen["anchors"], seen["calls"], kb["params"][2], st)
+    row = {"shape": f"{seen['calls']} calls, {seen['anchors']} anchors (calls of up to "
+                    f"{CHAIN_PLAIN_MAX_N})", "ms": ms, "plain_ms": plain_ms,
+           "anchors_per_s": seen["anchors"] / (ms * 1e-3), **st,
+           "predecessors_per_s": st["predecessors"] / (ms * 1e-3), "bound_ms": bms,
+           "bound_by": by, "main_path_launch_ms": full_ms,
+           "main_path_launch": f"{len(n_calls)} calls, {anchors} anchors"}
+    log(f"{name} on the main path's calls of up to {CHAIN_PLAIN_MAX_N} anchors " + json.dumps(row))
+    rec.kern[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          main_path_launch_ms=full_ms)
 
     # the reference goldens through run_calls on the card, scores and parents exactly
     fixtures = HERE / "tests" / "fixtures"
@@ -1862,6 +1985,43 @@ def chain_phases(torch, port: Port, rec: Record, seed: int):
         f"({time.perf_counter() - t0:.1f} s)")
     if bad or not sel:
         fail(f"chain results differ from the oracle in calls {bad}")
+
+
+def ranges(torch, starts, counts):
+    """The row indices start .. start + count - 1 of each (start, count),
+    concatenated in order."""
+    total = int(counts.sum())
+    first = torch.cumsum(counts, 0) - counts
+    return (torch.repeat_interleave(starts - first, counts)
+            + torch.arange(total, device=counts.device))
+
+
+def exclusive_cumsum(torch, counts):
+    return torch.cumsum(counts, 0) - counts
+
+
+def chain_subset(torch, batch, sel):
+    """The flat chain batch of the calls `sel` (ascending indices) of
+    `batch`, and the anchor columns they hold in `batch`."""
+    n = batch["n"][sel]
+    cols = ranges(torch, batch["off"][sel], n.long())
+    sub = {k: batch[k][cols] for k in ("x_lo", "qi", "qspan", "st_eff")}
+    sub.update(n=n, off=exclusive_cumsum(torch, n.long()), gap_table=batch["gap_table"][sel])
+    return sub, cols
+
+
+def abea_subset(torch, batch, sel):
+    """The flat abea batch of the reads `sel` (ascending indices) of
+    `batch`, and the band rows they hold in `batch`."""
+    ne, nk = batch["ne"][sel], batch["nk"][sel]
+    ne64, nk64 = ne.long(), nk.long()
+    sub = {"ev": batch["ev"][ranges(torch, batch["ev_off"][sel], ne64)]}
+    k_rows = ranges(torch, batch["k_off"][sel], nk64)
+    sub.update({k: batch[k][k_rows] for k in ("gm", "stdv", "lstdv")})
+    sub.update(ne=ne, nk=nk, lp=batch["lp"][sel], ev_off=exclusive_cumsum(torch, ne64),
+               k_off=exclusive_cumsum(torch, nk64))
+    sub["band_off"] = sub["ev_off"] + sub["k_off"] + 2 * torch.arange(len(sel), device=ne.device)
+    return sub, ranges(torch, batch["band_off"][sel], ne64 + nk64 + 2)
 
 
 def abea_time(torch, port, batch, reps=3):
@@ -2107,28 +2267,48 @@ def abea_phases(torch, port: Port, rec: Record, seed: int):
         if good != len(cases):
             fail(f"abea goldens: {good}/{len(cases)}")
 
-    # every output of the counted run against the plain versions on the same tensors
+    # the counted run's outputs of every read of up to ABEA_PLAIN_MAX_BASES
+    # bases against the plain versions on the same tensors
     batch, fill, walk = kept["batch"], kept["fill"], kept["walk"]
-    pf_ms, pw_ms = abea_check(torch, port, rec, batch, fill, walk, "abea-512's counted run")
-    log("abea main path vs plain, every output " + json.dumps(
-        {"bands": A.n_rows(batch), "reads": batch["ne"].numel(), "plain_fill_s": pf_ms * 1e-3,
+    bases = batch["nk"].long() + (port.abea_oracle.KMER_SIZE - 1)
+    sel = torch.nonzero(bases <= ABEA_PLAIN_MAX_BASES)[:, 0]
+    sub, rows = abea_subset(torch, batch, sel)
+    sub_fill = {k: v[sel] if k == "seed" else v[rows] for k, v in fill.items()}
+    sub_walk = {k: v[rows] if k == "pairs" else v[sel] for k, v in walk.items()}
+    pf_ms, pw_ms = abea_check(torch, port, rec, sub, sub_fill, sub_walk,
+                              f"abea-512's reads of up to {ABEA_PLAIN_MAX_BASES} bases")
+    log("abea main path vs plain, reads up to the cut " + json.dumps(
+        {"reads": int(sel.numel()), "of_reads": batch["ne"].numel(),
+         "bases": int(bases[sel].sum()), "longest": int(bases[sel].max()),
+         "bands": A.n_rows(sub), "of_bands": A.n_rows(batch), "plain_fill_s": pf_ms * 1e-3,
          "plain_walk_s": pw_ms * 1e-3}))
 
-    # the kernels on the main path's launch
-    fill_ms, fill2, walk_ms, walk2 = abea_time(torch, port, batch)
-    rec.check("abea_fill", max(max_abs_diff(torch, fill2[k], v) for k, v in fill.items()),
-              "a rerun of the main path's launch")
-    rec.check("abea_walk", max(max_abs_diff(torch, walk2[k], v) for k, v in walk.items()),
-              "a rerun of the main path's launch")
+    # the kernels on the main path's launch, and on those reads alone (the
+    # kernels line's figures: the plain times and the bounds are theirs)
     batch_np = {k: v.cpu().numpy() for k, v in batch.items()}
-    row = {"shape": "abea-512's launch", **abea_row(torch, port, rec, batch_np, batch, fill_ms,
-                                                     fill2, walk_ms, walk2, "abea-512"),
-           "plain_fill_ms": pf_ms, "plain_walk_ms": pw_ms}
+    full = abea_time(torch, port, batch)
+    rec.check("abea_fill", max(max_abs_diff(torch, full[1][k], v) for k, v in fill.items()),
+              "a rerun of the main path's launch")
+    rec.check("abea_walk", max(max_abs_diff(torch, full[3][k], v) for k, v in walk.items()),
+              "a rerun of the main path's launch")
+    row = {"shape": "abea-512's launch", **abea_row(torch, port, rec, batch_np, batch, *full,
+                                                     "abea-512")}
     log("abea kernels on the main path's launch " + json.dumps(row))
-    rec.kern["abea_fill"].update(ms=fill_ms, plain_ms=pf_ms, bound_ms=row["fill_bound_ms"],
-                                 bound_by=row["fill_bound_by"])
-    rec.kern["abea_walk"].update(ms=walk_ms, plain_ms=pw_ms, bound_ms=row["walk_bound_ms"],
-                                 bound_by=row["walk_bound_by"])
+    fill_ms, fill2, walk_ms, walk2 = abea_time(torch, port, sub)
+    rec.check("abea_fill", max(max_abs_diff(torch, fill2[k], v) for k, v in sub_fill.items()),
+              "the cut's reads as one launch")
+    rec.check("abea_walk", max(max_abs_diff(torch, walk2[k], v) for k, v in sub_walk.items()),
+              "the cut's reads as one launch")
+    sub_np = {k: v.cpu().numpy() for k, v in sub.items()}
+    cut = {"shape": f"abea-512's reads of up to {ABEA_PLAIN_MAX_BASES} bases",
+           **abea_row(torch, port, rec, sub_np, sub, fill_ms, fill2, walk_ms, walk2,
+                      "abea-512-cut"),
+           "plain_fill_ms": pf_ms, "plain_walk_ms": pw_ms}
+    log("abea kernels on the main path's reads up to the cut " + json.dumps(cut))
+    rec.kern["abea_fill"].update(ms=fill_ms, plain_ms=pf_ms, bound_ms=cut["fill_bound_ms"],
+                                 bound_by=cut["fill_bound_by"], main_path_launch_ms=full[0])
+    rec.kern["abea_walk"].update(ms=walk_ms, plain_ms=pw_ms, bound_ms=cut["walk_bound_ms"],
+                                 bound_by=cut["walk_bound_by"], main_path_launch_ms=full[2])
 
     # the batch's shortest reads against the port's oracle, exactly
     t0 = time.perf_counter()
@@ -2140,6 +2320,182 @@ def abea_phases(torch, port: Port, rec: Record, seed: int):
         f"({min(lens)}-{max(lens)} bases) exact ({time.perf_counter() - t0:.1f} s)")
     if bad or len(sel) != ABEA_ORACLE_READS:
         fail(f"abea results differ from the oracle in reads {bad}")
+
+
+def golden_eventalign_entries(port, counts):
+    """tests/fixtures/eventalign_golden.json's 25 cases as one batch of
+    cli.abea.bam_entries (case i's records on reference i, its contig
+    ctg1), their contigs, and per case its results."""
+    cases = json.loads((HERE / "tests" / "fixtures" / "eventalign_golden.json").read_text())
+    nt16 = {c: i for i, c in enumerate(port.bam.SEQ_NT16_STR)}
+    entries, contigs, want = [], [], []
+    for ci, case in enumerate(cases["cases"]):
+        recs = sorted((port.bam.BamRecord(
+            rd["qname"], rd["flag"], ci, rd["pos"], rd["mapq"], [tuple(c) for c in rd["cigar"]],
+            np.array([nt16[ch] for ch in rd["query"]], np.uint8),
+            np.full(len(rd["query"]), 30, np.uint8), {"NM": rd["nm"]}) for rd in case["reads"]),
+            key=lambda r: r.pos)
+        reads = {rd["qname"]: rd["fastq"] for rd in case["reads"]}
+        sigs = {rd["qname"]: np.array([float(x) for x in rd["signal"]], np.float32)
+                for rd in case["reads"]}
+        entries += port.cli_abea.bam_entries(recs, reads, sigs, counts)
+        contigs.append(("ctg1", case["genome"]))
+        want += case["results"]
+    return entries, contigs, want
+
+
+def oracle_tsv(port, model, r, region=(-1, -1)) -> str:
+    """The port's oracle's TSV rows (read index 0, contig chr1) of a
+    RealignRead: align_read_to_ref, then emit_tsv_lines."""
+    EO = port.ea_oracle
+    aln = EO.align_read_to_ref(r.record, r.ref_segment, r.record.pos, r.read_length, r.events,
+                               r.sc, model, r.b2e, r.events_per_base, 0, *region)
+    return "".join(EO.emit_tsv_lines(r.events, model, r.sc, aln, 0, r.record.name, "chr1",
+                                     4000.0))
+
+
+def eventalign_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 16: the eventalign main path, cell eventalign-512."""
+    cli, EA = port.cli_abea, port.EA
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = Path(tmp)
+        lengths = np.linspace(*ABEA_LENS, ABEA_READS).astype(int)
+        t0 = time.perf_counter()
+        info = write_eventalign_dataset(tmp, lengths, np.random.default_rng(seed), port.bam)
+        log("eventalign dataset " + json.dumps({**info, "written_s": time.perf_counter() - t0}))
+
+        # the timed run: load, the BAM, one f5c batch (-K 512 -B 3.7M)
+        port.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = port.abea_signal.load_pore_model(str(tmp / "pore.tsv"))
+        signals = port.abea_signal.load_signals_npz(str(tmp / "signals.npz"))
+        genome = {n: s.upper() for n, s, _ in port.read_sequences(str(tmp / "genome.fa"))}
+        reads = {n: s for n, s, _ in port.read_sequences(str(tmp / "reads.fq"))}
+        t1 = time.perf_counter()
+        ref_names, records, _, _ = cli.load_bam(str(tmp / "reads.bam"))
+        contigs = [(n, genome.get(n)) for n in ref_names]
+        counts = dict.fromkeys(cli.COUNTS, 0)
+        groups = list(cli.batches(cli.bam_entries(records, reads, signals, counts), ABEA_READS,
+                                  cli.parse_bases(ABEA_MAX_BASES)))
+        t2 = time.perf_counter()
+        if len(groups) != 1:
+            fail(f"eventalign-512 makes {len(groups)} batches at -K {ABEA_READS} -B "
+                 f"{ABEA_MAX_BASES}")
+        stats, keep = {}, {}
+        text, summary, n_rows = cli.eventalign_batch(
+            groups[0], contigs, model, cli.EventalignOptions(summary=True), counts, DEVICE,
+            stats=stats, keep=keep)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = port.launches()
+        total_s = t3 - t0
+        e2e = {"records": len(records), "entries": len(groups[0]), **counts,
+               "passed_qc": len(keep["realign"]), "tsv_rows": n_rows, "events": stats["events"],
+               "load_s": t1 - t0, "bam_s": t2 - t1, **{k: v for k, v in stats.items()},
+               "total_s": total_s, "tsv_rows_per_s_end_to_end": n_rows / total_s,
+               "events_per_s_end_to_end": stats["events"] / total_s,
+               "tsv_mb": len(text) / 1e6,
+               "launches": {k: v for k, v in launches.items() if v}}
+        log("eventalign end to end " + json.dumps(e2e))
+        for name in ("abea_fill", "abea_walk"):
+            rec.kern[name]["eventalign_512"] = {"launches": launches[name]}
+            if launches[name] != 1:
+                fail(f"the eventalign main path launched {name} {launches[name]} times: one "
+                     "expected")
+        passed = len(keep["realign"])
+        rows = text.splitlines()
+        if (counts["total"] != ABEA_READS or counts["bad_sig"] or passed < ABEA_READS // 2
+                or len(rows) != n_rows or any(r.count("\t") != 12 for r in rows)
+                or len(summary.splitlines()) != sum(len(a.ref_pos) > 0
+                                                     for a in keep["alignments"])):
+            fail(f"eventalign-512's output is malformed: {counts}, {passed} passed QC, "
+                 f"{len(rows)} rows of {n_rows}")
+        del text, rows
+
+        # -w over EA_WINDOW through the .bai, the same records as the filter
+        # without it; its two shortest reads against the port's oracle
+        t0 = time.perf_counter()
+        _, recs_w, r0, r1 = cli.load_bam(str(tmp / "reads.bam"), EA_WINDOW)
+        shutil.copyfile(tmp / "reads.bam", tmp / "noindex.bam")
+        _, recs_f, _, _ = cli.load_bam(str(tmp / "noindex.bam"), EA_WINDOW)
+        if [(r.name, r.pos, r.flag) for r in recs_w] != [(r.name, r.pos, r.flag) for r in recs_f]:
+            fail("-w through the .bai and through the record filter read other records")
+        counts_w, keep_w = dict.fromkeys(cli.COUNTS, 0), {}
+        text_w = cli.eventalign_batch(list(cli.bam_entries(recs_w, reads, signals, counts_w)),
+                                      contigs, model, cli.EventalignOptions(r0, r1), counts_w,
+                                      DEVICE, keep=keep_w)[0]
+        pos = [int(r.split("\t")[1]) for r in text_w.splitlines()]
+        t1 = time.perf_counter()
+        pairs_w = sorted(zip(keep_w["realign"], keep_w["alignments"]),
+                         key=lambda p: p[0].read_length)[:2]
+        same = [oracle_tsv(port, model, r, (r0, r1)) == EA.emit_tsv(
+            a, r.events, model, r.sc, 0, r.record.name, "chr1", 4000.0) for r, a in pairs_w]
+        if not pos or min(pos) < r0 or max(pos) > r1 or not all(same) or len(same) != 2:
+            fail(f"-w {EA_WINDOW}: {len(pos)} rows, oracle {same}")
+        log(f"eventalign -w {EA_WINDOW}: {len(recs_w)} records through the .bai (the filter's), "
+            f"{len(pos)} rows in [{min(pos)}, {max(pos)}] ({t1 - t0:.1f} s); its 2 shortest "
+            f"reads equal the port's oracle ({time.perf_counter() - t1:.1f} s)")
+
+    # the batch's shortest reads through realign_batch on the card and on the
+    # CPU, against the main run's and the port's oracle
+    t0 = time.perf_counter()
+    rr, alns = keep["realign"], keep["alignments"]
+    sel = sorted(range(len(rr)), key=lambda j: rr[j].read_length)[:EA_ORACLE_READS]
+    sub = [rr[j] for j in sel]
+    card, cpu = EA.realign_batch(sub, model, DEVICE), EA.realign_batch(sub, model, "cpu")
+    t1 = time.perf_counter()
+    bad = []
+    for j, r, a, b in zip(sel, sub, card, cpu):
+        got = [(x.ref_pos.tolist(), x.event_idx.tolist(), x.state.tolist())
+               for x in (a, b, alns[j])]
+        want = oracle_tsv(port, model, r)
+        if got[0] != got[1] or got[0] != got[2] or want != EA.emit_tsv(
+                a, r.events, model, r.sc, 0, r.record.name, "chr1", 4000.0) or not want:
+            bad.append(r.record.name)
+    lens = [r.read_length for r in sub]
+    log(f"eventalign realign sample: {len(sel) - len(bad)}/{len(sel)} of the batch's shortest "
+        f"reads ({min(lens)}-{max(lens)} bases) equal on the card, the CPU and the port's "
+        f"oracle (card and CPU {t1 - t0:.1f} s, oracle {time.perf_counter() - t1:.1f} s)")
+    if bad or len(sel) != EA_ORACLE_READS:
+        fail(f"eventalign realign differs in reads {bad}")
+
+    # the 25 goldens through the CLI's functions on the card: statuses,
+    # scalings, summaries and every TSV row exactly
+    t0 = time.perf_counter()
+    gtsv = HERE / "build" / "eventalign_golden_pore.tsv"
+    write_pore_model(gtsv)
+    gmodel = port.abea_signal.load_pore_model(str(gtsv))
+    gtsv.unlink()
+    gcounts = dict.fromkeys(cli.COUNTS, 0)
+    entries, gcontigs, want = golden_eventalign_entries(port, gcounts)
+    gkeep = {}
+    text, _, _ = cli.eventalign_batch(entries, gcontigs, gmodel, cli.EventalignOptions(),
+                                      gcounts, DEVICE, keep=gkeep)
+    passed = iter(zip(gkeep["realign"], gkeep["alignments"]))
+    good = 0
+    for (read_idx, status, sc, epb), ent, w in zip(gkeep["scaling"], entries, want):
+        ok = (ent[0], read_idx, status) == (w["qname"], w["read_idx"], w["status"])
+        if ok and status == 0:
+            r, a = next(passed)
+            s = EA.summarize(a, r.events, gmodel, sc, nm=ent[3].tags["NM"])
+            ok = ([sc["shift"], sc["scale"], sc["var"], epb]
+                  == [np.float32(float.fromhex(h)) for h in w["scale"][:3]]
+                  + [float.fromhex(w["scale"][3])]
+                  and [s[k] for k in ("num_events", "num_steps", "num_skips", "num_stays")]
+                  == [int(x) for x in w["summary"][:4]]
+                  and [s["sum_duration"], s["sum_z_score"]]
+                  == [float.fromhex(x) for x in w["summary"][4:6]]
+                  and EA.emit_tsv(a, r.events, gmodel, sc, read_idx, ent[0], "ctg1",
+                                  4000.0).splitlines() == w["tsv"])
+        good += ok
+    rows_ok = text.splitlines() == [t for w in want for t in w.get("tsv", [])]
+    log(f"eventalign goldens eventalign_golden.json: {good}/{len(want)} reads exact (status, "
+        f"scalings, summary, TSV), batch text {'equal' if rows_ok else 'differs'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if good != len(want) or len(gkeep["scaling"]) != len(want) or not rows_ok:
+        fail(f"eventalign goldens: {good}/{len(want)}")
 
 
 def occ_bound(rows_needed: int, n_idx: int, row_bytes: int):
@@ -2709,6 +3065,7 @@ def main(argv=None) -> int:
     bsw_phases(torch, port, rec, args.seed)
     chain_phases(torch, port, rec, args.seed)
     abea_phases(torch, port, rec, args.seed)
+    eventalign_phase(torch, port, rec, args.seed)
     bsw_roofline_phase(torch, port, rec, args.seed)
     chain_roofline_phase(torch, port, rec)
     abea_chain_lines(rec)
@@ -2731,7 +3088,8 @@ def main(argv=None) -> int:
                         "library_ms": k.get("library_ms"),
                         # the gathers: every pick fetched once at the peak rate, and
                         # the same numbers on occ-gather-40m
-                        **{key: k[key] for key in ("fetch_floor_ms", "occ_gather_40m")
+                        **{key: k[key] for key in ("fetch_floor_ms", "occ_gather_40m",
+                                                   "main_path_launch_ms", "eventalign_512")
                            if key in k}})
     log("kernel device seconds over one main-path run (torch.profiler) "
         + json.dumps(rec.device_s))

@@ -6,8 +6,10 @@ this package imports neither it nor `jax`.  Ported so far: PairHMM
 Smith-Waterman extension (`ops.bsw`, kernel `csrc/bsw_extend.cu`, CLI
 `cli.bsw`), minimap2 anchor chaining (`ops.chain`, kernel
 `csrc/chain_dp.cu`, CLI `cli.chain`) and f5c's adaptive banded event
-alignment in read coordinates (`ops.events` host prep, `ops.abea`, kernels
-`csrc/abea_fill.cu` and `csrc/abea_walk.cu`, CLI `cli.abea`).
+alignment (`ops.events` host prep, `ops.abea`, kernels `csrc/abea_fill.cu`
+and `csrc/abea_walk.cu`, CLI `cli.abea`), in read coordinates and in the
+eventalign mode (`io.bam`, `ops.eventalign`: QC, the reference-space
+realign and the TSV).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU and no explicit device they raise.  Kernels are built at first use,

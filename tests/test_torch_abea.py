@@ -364,12 +364,13 @@ def test_cli_matches_jax_cli(tmp_path, capsys, monkeypatch):
     assert summary == [f"[eventalign] 4 reads, {len(rows) - 1} aligned event-kmer pairs"]
     assert "WARNING: no raw signal for read read1, skipped" in err
     assert err.splitlines()[-1].startswith("Kernel time: ")
-    # stdout, and the eventalign mode's flags refused
+    # stdout, and -b without -g refused, as by the JAX CLI (the eventalign
+    # mode needs the genome)
     assert cli.main(args + ["--device", "cpu"]) == 0
     assert capsys.readouterr().out.encode() == ours.read_bytes()
     with pytest.raises(SystemExit):
-        cli.main(args + ["--device", "cpu", "-b", "x.bam", "-g", "g.fa"])
-    assert "eventalign mode (-b/-g) is not ported yet" in capsys.readouterr().err
+        cli.main(args + ["--device", "cpu", "-b", "x.bam"])
+    assert "-b requires -g" in capsys.readouterr().err
 
 
 def test_cli_batches_by_reads_and_bases(tmp_path, capsys):

@@ -15,7 +15,9 @@ seeds, pairs and emission sums must be equal bit for bit; the occ-gather
 kernels XOR integer rows, so their folds must be equal; the fmi pipeline
 and the index builder compute in int64, so the card's results must equal
 the CPU's exactly; the roofline probes' kernels (bsw_stripped, chain_micro)
-compute in int32 that wraps, so every output must be equal.
+compute in int32 that wraps, so every output must be equal; the eventalign
+mode's realign runs the same elementwise f32 ops on both devices, so its
+TSV must be equal byte for byte.
 """
 
 import json
@@ -33,6 +35,7 @@ from genomicsbench_palisade_tpu_torch.cli import fmi as cli_fmi
 from genomicsbench_palisade_tpu_torch.convert import (abea_batch_from_numpy, bsw_batch_from_numpy,
                                                       chain_batch_from_numpy, fmi_index_from_numpy)
 from genomicsbench_palisade_tpu_torch.index import builder as IB
+from genomicsbench_palisade_tpu_torch.io import bam as B
 from genomicsbench_palisade_tpu_torch.io.chain_dump import ChainCallInput
 from genomicsbench_palisade_tpu_torch.io import signal as SIG
 from genomicsbench_palisade_tpu_torch.ops import abea as A
@@ -497,6 +500,33 @@ def test_abea_goldens_on_card(cuda, fixtures_dir, tmp_path):
         assert g == [tuple(p) for p in c["pairs"]]
     assert [float(v) for v in scales] == [float(np.float32(float.fromhex(c["scale"])))
                                           for c in cases]
+
+
+@pytest.mark.cuda
+def test_eventalign_goldens_on_card_equal_cpu(cuda, fixtures_dir, tmp_path):
+    """The eventalign mode's batch (abea kernels, the realign's CUDA graphs)
+    gives the 25 goldens' TSV rows on the card, and the same text as the
+    CPU's plain path on the first five cases."""
+    chip_smoke.write_pore_model(tmp_path / "pore.tsv")
+    model = SIG.load_pore_model(str(tmp_path / "pore.tsv"))
+
+    class Port:
+        bam, cli_abea = B, cli_abea
+
+    def run(device, cases=None):
+        counts = dict.fromkeys(cli_abea.COUNTS, 0)
+        entries, contigs, want = chip_smoke.golden_eventalign_entries(Port, counts)
+        if cases is not None:
+            keep = [e for e in entries if e[3].ref_id < cases]
+            entries, contigs = keep, contigs[:cases]
+            want = want[: len(keep)]
+        text = cli_abea.eventalign_batch(entries, contigs, model, cli_abea.EventalignOptions(),
+                                         counts, device)[0]
+        return text, [t for w in want for t in w.get("tsv", [])]
+
+    text, want = run(cuda)
+    assert text.splitlines() == want
+    assert run(cuda, 5)[0] == run("cpu", 5)[0]
 
 
 @pytest.mark.cuda
