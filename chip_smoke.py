@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's PairHMM, bsw, chain, abea (read-coordinate and
-eventalign modes) and fmi paths and its occ-gather, bsw roofline and chain
-roofline probes on one GPU and hold their kernels to their plain PyTorch
-versions.
+eventalign modes), fmi, kmer and poa paths and its occ-gather, bsw roofline
+and chain roofline probes on one GPU and hold their kernels to their plain
+PyTorch versions.
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, run in the order 1, 2, 11, 12, 3-10, 16, 13-15 (any failure exits
-non-zero and prints no result):
+Phases, run in the order 1, 2, 11, 12, 3-10, 16, 17, 18, 13-15 (any failure
+exits non-zero and prints no result):
   1. environment: Python, torch, CUDA, nvcc and the card (nvidia-smi);
   2. build csrc/phmm_forward.cu, csrc/bsw_extend.cu, csrc/chain_dp.cu,
      csrc/abea_fill.cu, csrc/abea_walk.cu, csrc/occ_gather.cu,
@@ -189,6 +189,35 @@ non-zero and prints no result):
      on the CPU against the main run's and the port's oracle, exactly; the
      25 eventalign goldens through `eventalign_batch` on the card, every
      status, scaling, summary and TSV row exactly;
+ 17. the kmer main path, cell kmer-0.25g (tools/kmer_scale_bench.py's
+     synth_reads at its 0.25 Gbp rehearsal): 25,000 reads of 10,000 bases
+     drawn from one uniform random 25 Mbp genome with 0.1% substitutions
+     (seeded from --seed), written as FASTA with a config of k 17 and no
+     minimizers; `cli.kmer_cnt.read_reads` (the 5,000-base overlap filter)
+     and `cli.kmer_cnt.count` on the card, which streams the 250 Mbp
+     through `ops.kmer.count_kmers_batched` (96 Mbp batches: 3 merges into
+     the 2^26-slot accumulator); the phase split (parse, encode, H2D, pack
+     and canonical, sort, merge), the merges (each waits for the device
+     twice: the valid windows' compaction and the run ends' count), the three
+     metrics, Mbases/s end to end (parse + count) and peak device memory;
+     the CLI's lines for the first 512 reads; those reads through the
+     one-shot and the streamed counter (3 merges) on the card and the CPU,
+     all four metric sets equal; k 31 and 32 on 64 reads, card against
+     CPU; the 25 kmer goldens on the card;
+ 18. the poa main path, cell poa-64x10x750 (tools/poa_scale_bench.py's
+     synth_windows at its defaults): 64 windows of 10 sequences, each 750
+     bases with 4% substitutions and 2 deletions (seeded from --seed),
+     written as '>0'-delimited FASTA; `cli.poa.read_batches` and
+     `ops.poa.msa_consensus_batch` on the card with the driver's scores;
+     seqs/s end to end, the align / add / consensus split, rounds, fill
+     rows and walk steps a round, fixpoint passes and reruns, host syncs a
+     round, the torch ops of a row step and a walk step (counted on the CPU)
+     and so the kernels and CUDA graph replays a round, and peak device
+     memory; the CLI's stdout against the pooled
+     consensus; 2 windows round by round on the card and the CPU (every
+     alignment and the consensus equal); 4 seeded windows of 6 x 200 bases
+     against the port's oracle; the 48 poa goldens (nw) and the 10 sw/ov
+     cases on the card, exactly;
  15. the abea chain cost: per abea cell the ns and SM cycles (at the
      median clock of phases 13-14) a band of the fill and a step of the
      walk, and the chain floors; each kernel's device seconds over one
@@ -197,9 +226,9 @@ non-zero and prints no result):
      {"ok": true, "device": {...}}.
 Every measurement is printed as it is taken.  Needs one CUDA card; without
 one it exits 1.  The bsw dataset (~3.8 GB), the chain dump (~236 MB), the
-abea signals (~118 MB, twice: phases 10 and 16) and the fmi reads and
-index npz (~0.5 GB) are written under build/ beside this script and
-deleted at the end.
+abea signals (~118 MB, twice: phases 10 and 16), the fmi reads and
+index npz (~0.5 GB), the kmer reads (~255 MB) and the poa windows are
+written under build/ beside this script and deleted at the end.
 """
 
 from __future__ import annotations
@@ -281,6 +310,23 @@ ABEA_LENS = (1000, 13450)  # 3,698,945 bases: -B 3.7M of the reference's GPU run
 ABEA_MAX_BASES = "3.7M"  # -B of the reference's GPU run (scripts/run-gpu.sh:32)
 ABEA_CLI_READS = 20
 ABEA_ORACLE_READS = 8
+# kmer-0.25g: tools/kmer_scale_bench.py's synth_reads (genome_mbp, read_len,
+# err) at its --gbp 0.25 rehearsal (KMER_SCALE.json), the driver's config
+KMER_READS = 25_000  # 250 Mbp of 10,000-base reads: past the CLI's 192 Mbp, so streamed
+KMER_READ_LEN = 10_000
+KMER_GENOME_MBP = 25
+KMER_ERR = 0.001
+KMER_K = 17
+KMER_MIN_LEN = 5_000  # the driver's minimum overlap (cli/kmer_cnt.py --min-ovlp)
+KMER_MERGES = 3  # 96 Mbp batches (count_kmers_batched's default)
+KMER_PARITY_READS = 512
+KMER_WIDE_READS = 64  # reads counted at k = 31 and 32, card against CPU
+# poa-64x10x750: tools/poa_scale_bench.py's synth_windows at its defaults,
+# the reference driver's scores (oe1 = o1+e1, oe2 = o2+e2)
+POA_WINDOWS, POA_SEQS, POA_LEN = 64, 10, 750
+POA_PARAMS = (2, -4, -6, -2, -25, -1)
+POA_CPU_WINDOWS = 2  # windows held card against CPU round by round
+POA_ORACLE = (4, 6, 200)  # windows x sequences x bases against the port's oracle
 # the main paths' outputs held to the plain versions: chain-1001's calls of
 # up to CHAIN_PLAIN_MAX_N anchors (the plain version steps once per anchor
 # of its longest call) and abea-512's reads of up to ABEA_PLAIN_MAX_BASES
@@ -291,6 +337,23 @@ EA_DROPPED = 16  # eventalign-512's records of each kind f5c's filters drop
 EA_SPACER = (50, 500)  # random bases between two reads in its genome
 EA_WINDOW = "chr1:1-100000"  # the -w region read through the .bai
 EA_ORACLE_READS = 8
+# kmer-0.25g: tools/kmer_scale_bench.py's synth_reads (genome_mbp, read_len,
+# err) at its --gbp 0.25 rehearsal (KMER_SCALE.json), the driver's config
+KMER_READS = 25_000  # 250 Mbp of 10,000-base reads: past the CLI's 192 Mbp, so streamed
+KMER_READ_LEN = 10_000
+KMER_GENOME_MBP = 25
+KMER_ERR = 0.001
+KMER_K = 17
+KMER_MIN_LEN = 5_000  # the driver's minimum overlap (cli/kmer_cnt.py --min-ovlp)
+KMER_MERGES = 3  # 96 Mbp batches (count_kmers_batched's default)
+KMER_PARITY_READS = 512
+KMER_WIDE_READS = 64  # reads counted at k = 31 and 32, card against CPU
+# poa-64x10x750: tools/poa_scale_bench.py's synth_windows at its defaults,
+# the reference driver's scores (oe1 = o1+e1, oe2 = o2+e2)
+POA_WINDOWS, POA_SEQS, POA_LEN = 64, 10, 750
+POA_PARAMS = (2, -4, -6, -2, -25, -1)
+POA_CPU_WINDOWS = 2  # windows held card against CPU round by round
+POA_ORACLE = (4, 6, 200)  # windows x sequences x bases against the port's oracle
 # operations of csrc/abea_fill.cu a valid cell: f32 6 for the emission
 # (two subtractions, the division, two multiplications, the addition) and 4
 # compares; f64 4 conversions in, 5 additions, 3 conversions out
@@ -1001,6 +1064,47 @@ def write_fastq(path, enc):
             f.write(f"@r{i}\n{acgt[row].tobytes().decode()}\n+\n{'I' * len(row)}\n")
 
 
+def synth_kmer_reads(rng, n_reads: int, read_len: int, genome_mbp: int, err: float):
+    """tools/kmer_scale_bench.py's synth_reads, vectorised: reads [n, len]
+    uint8 codes drawn from one uniform random genome, a substitution (a
+    random code, maybe the same) at each base with probability err."""
+    genome = rng.integers(0, 4, genome_mbp * 1_000_000, dtype=np.uint8)
+    starts = rng.integers(0, len(genome) - read_len, n_reads)
+    reads = np.empty((n_reads, read_len), np.uint8)
+    for i, st in enumerate(starts):
+        reads[i] = genome[st : st + read_len]
+    flat = reads.reshape(-1)
+    n_sub = int(rng.binomial(flat.size, err))
+    flat[rng.integers(0, flat.size, n_sub)] = rng.integers(0, 4, n_sub, dtype=np.uint8)
+    return reads
+
+
+def write_fasta(path, rows, names=None):
+    """Rows of 2-bit codes (or strings) as one-line FASTA records."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(path, "wb") as f:
+        for i, row in enumerate(rows):
+            seq = row.encode() if isinstance(row, str) else acgt[row].tobytes()
+            f.write(f">{names[i] if names else f'r{i}'}\n".encode() + seq + b"\n")
+
+
+def synth_windows(rng, n_win: int, n_seq: int, length: int):
+    """tools/poa_scale_bench.py's synth_windows: a random base sequence a
+    window, each of its sequences with 4% substitutions and 2 deletions."""
+    batches = []
+    for _ in range(n_win):
+        base = rng.integers(0, 4, length)
+        seqs = []
+        for _ in range(n_seq):
+            s = base.copy()
+            mut = rng.random(length) < 0.04
+            s[mut] = rng.integers(0, 4, int(mut.sum()))
+            s = np.delete(s, np.sort(rng.choice(length, 2, replace=False)))
+            seqs.append("".join("ACGT"[c] for c in s))
+        batches.append(seqs)
+    return batches
+
+
 def strip_edge_batch(rng, qe_pad: int, tp: int, n: int):
     """(q_codes, target, h_init, e_init) int32 numpy for `bsw_stripped`: n
     pairs from each of four starts side by side (zero; seeded, H 0-60 and E
@@ -1245,11 +1349,14 @@ class Port:
         from genomicsbench_palisade_tpu_torch.cli import bsw as cli_bsw
         from genomicsbench_palisade_tpu_torch.cli import chain as cli_chain
         from genomicsbench_palisade_tpu_torch.cli import fmi as cli_fmi
+        from genomicsbench_palisade_tpu_torch.cli import kmer_cnt as cli_kmer
+        from genomicsbench_palisade_tpu_torch.cli import poa as cli_poa
         from genomicsbench_palisade_tpu_torch.cli import phmm as cli
         from genomicsbench_palisade_tpu_torch.convert import (abea_batch_from_numpy,
                                                               bsw_batch_from_numpy,
                                                               chain_batch_from_numpy,
                                                               fmi_index_from_numpy)
+        from genomicsbench_palisade_tpu_torch.config import load_flye_cfg
         from genomicsbench_palisade_tpu_torch.index import builder as fmi_builder
         from genomicsbench_palisade_tpu_torch.index import fmi_index
         from genomicsbench_palisade_tpu_torch.io import bam
@@ -1267,6 +1374,8 @@ class Port:
         from genomicsbench_palisade_tpu_torch.ops import chain_cuda
         from genomicsbench_palisade_tpu_torch.ops import chain_micro
         from genomicsbench_palisade_tpu_torch.ops import fmi_pipeline
+        from genomicsbench_palisade_tpu_torch.ops import kmer as K
+        from genomicsbench_palisade_tpu_torch.ops import poa as POA
         from genomicsbench_palisade_tpu_torch.ops import occ_gather
         from genomicsbench_palisade_tpu_torch.ops import phmm as P
         from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
@@ -1278,6 +1387,7 @@ class Port:
         from genomicsbench_palisade_tpu_torch.ops.oracle import eventalign as ea_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import fmi as fmi_oracle
         from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as oracle
+        from genomicsbench_palisade_tpu_torch.ops.oracle import poa as poa_oracle
         from genomicsbench_palisade_tpu_torch import tools
         from genomicsbench_palisade_tpu_torch.tools import bsw_roofline as bsw_probe
         from genomicsbench_palisade_tpu_torch.tools import chain_roofline as chain_probe
@@ -1299,7 +1409,9 @@ class Port:
                           fmi_pipeline=fmi_pipeline, occ_gather=occ_gather,
                           fmi_oracle=fmi_oracle, occ_tool=occ_tool, bsw_stripped=bsw_stripped,
                           chain_micro=chain_micro, bsw_probe=bsw_probe, chain_probe=chain_probe,
-                          tools=tools, bam=bam, EA=EA, ea_oracle=ea_oracle)
+                          tools=tools, bam=bam, EA=EA, ea_oracle=ea_oracle,
+                          cli_kmer=cli_kmer, K=K, cli_poa=cli_poa, POA=POA,
+                          poa_oracle=poa_oracle, load_flye_cfg=load_flye_cfg)
         self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend, chain_cuda.chain_dp,
                         *abea_cuda.KERNELS, *occ_gather.KERNELS, *bsw_stripped.KERNELS,
                         *chain_micro.KERNELS]
@@ -1321,6 +1433,7 @@ class Record:
         self.device_s = {}  # kernel: its device seconds over one main-path run
         self.sm_mhz = []  # the median SM clock of each sampled phase (13-14)
         self.abea_chain = []  # the abea kernels' chain rows, printed at the end
+        self.card = ""  # nvidia-smi's name and power limit, beside phases 17-18's figures
 
     def profiled(self, cell, prof):
         """Keep each kernel's summed device time from a main path's profile."""
@@ -2497,6 +2610,251 @@ def eventalign_phase(torch, port: Port, rec: Record, seed: int):
     if good != len(want) or len(gkeep["scaling"]) != len(want) or not rows_ok:
         fail(f"eventalign goldens: {good}/{len(want)}")
 
+def kmer_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 17: the kmer main path, cell kmer-0.25g."""
+    cli, K = port.cli_kmer, port.K
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        codes = synth_kmer_reads(np.random.default_rng(seed), KMER_READS, KMER_READ_LEN,
+                                 KMER_GENOME_MBP, KMER_ERR)
+        write_fasta(tmp / "reads.fa", codes)
+        write_fasta(tmp / "parity.fa", codes[:KMER_PARITY_READS])
+        del codes
+        cfg = tmp / "kmer.cfg"
+        cfg.write_text(f"kmer_size = {KMER_K}\nuse_minimizers = 0\n")
+        log(f"kmer dataset: {KMER_READS} reads of {KMER_READ_LEN} bases from a "
+            f"{KMER_GENOME_MBP} Mbp genome, {KMER_ERR:.1%} substitutions, "
+            f"{(tmp / 'reads.fa').stat().st_size / 1e6:.1f} MB of FASTA "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # the timed run: the CLI's read (parse and the overlap filter) and counter
+        port.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k = int(port.load_flye_cfg(str(cfg))["kmer_size"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            reads = cli.read_reads(str(tmp / "reads.fa"), KMER_MIN_LEN)
+        t1 = time.perf_counter()
+        stats = {}
+        metrics = cli.count(reads, k, KMER_MIN_LEN, DEVICE, stats)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = port.launches()
+        bases = sum(len(r) for r in reads)
+        e2e = {"reads": len(reads), "bases": bases, **metrics, "parse_s": t1 - t0, **stats,
+               "count_s": t2 - t1, "total_s": t2 - t0,
+               "mbases_per_s_end_to_end": bases / 1e6 / (t2 - t0),
+               "mbases_per_s_count": bases / 1e6 / (t2 - t1),
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "kernel_launches": sum(launches.values()), "card": rec.card}
+        log("kmer-0.25g end to end " + json.dumps(e2e))
+        if (stats.get("merges") != KMER_MERGES or any(launches.values())
+                or metrics["occurrences"] != KMER_READS * (KMER_READ_LEN - KMER_K)
+                or not KMER_GENOME_MBP * 800_000 < metrics["total_kmers"] < KMER_GENOME_MBP * 1_600_000
+                or not 0 < metrics["hash_size"] < metrics["total_kmers"]):
+            fail(f"kmer-0.25g: {e2e}")
+
+        # the CLI's lines for the first reads
+        t0 = time.perf_counter()
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli.main(["--reads", str(tmp / "parity.fa"), "--config", str(cfg), "--debug"])
+        parity = reads[:KMER_PARITY_READS]
+        want = K.count_kmers(parity, k=k, device=DEVICE)
+        lines = (f"Hash size: {want['hash_size']}", f"Total k-mers {want['total_kmers']}",
+                 "useMinimizers: 0", "Kernel time: ")
+        if not all(ln in out.getvalue() + err.getvalue() for ln in lines):
+            fail(f"the kmer CLI printed {out.getvalue()!r} {err.getvalue()!r}")
+        log(f"kmer CLI on {len(parity)} reads: its lines give the counter's metrics "
+            f"({time.perf_counter() - t0:.1f} s)")
+    del reads
+
+    # the one-shot and the streamed counters (>= 2 merges) on the card and
+    # the CPU; k = 31 and 32 (bit 63), card against CPU
+    t0 = time.perf_counter()
+    batched = dict(k=k, batch_bases=KMER_PARITY_READS * KMER_READ_LEN // 3)
+    sets = {(dev, fn.__name__): fn(parity, device=dev, **(batched if fn is K.count_kmers_batched
+                                                             else {"k": k}))
+            for dev in (DEVICE, "cpu") for fn in (K.count_kmers, K.count_kmers_batched)}
+    wide = parity[:KMER_WIDE_READS]
+    for kk in (31, 32):
+        for dev in (DEVICE, "cpu"):
+            sets[dev, f"k{kk}"] = K.count_kmers_batched(wide, k=kk, batch_bases=200_000,
+                                                        device=dev)
+    log(f"kmer parity: {KMER_PARITY_READS} reads, four metric sets "
+        f"{json.dumps(sets[DEVICE, 'count_kmers'])}; k 31 and 32 on {KMER_WIDE_READS} reads "
+        f"{[sets[DEVICE, f'k{kk}']['total_kmers'] for kk in (31, 32)]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if (len({json.dumps(v) for kk, v in sets.items() if kk[1].startswith("count")}) != 1
+            or any(sets[DEVICE, f"k{kk}"] != sets["cpu", f"k{kk}"] for kk in (31, 32))):
+        fail(f"kmer counters disagree: {sets}")
+
+    # the 25 reference goldens on the card
+    cases = json.loads((HERE / "tests" / "fixtures" / "kmer_golden.json").read_text())["cases"]
+    good = 0
+    for case in cases:
+        args = dict(k=case["k"], min_read_length=case["min_read_length"], device=DEVICE)
+        good += all((m["total_kmers"], m["hash_size"]) == (case["total_kmers"], case["hash_size"])
+                    for m in (K.count_kmers(case["reads"], **args),
+                              K.count_kmers_batched(case["reads"], batch_bases=600,
+                                                    cap=1 << 13, **args)))
+    log(f"kmer goldens kmer_golden.json: {good}/{len(cases)} exact (both counters)")
+    if good != len(cases) or not cases:
+        fail(f"kmer goldens: {good}/{len(cases)}")
+
+
+def poa_lockstep(POA, PO, wins, device):
+    """Every round's alignments of the windows through align_batch, and the
+    consensus."""
+    graphs, rounds = [PO.PoaGraph() for _ in wins], []
+    for k in range(max(len(w) for w in wins)):
+        idxs = [i for i, w in enumerate(wins) if k < len(w)]
+        alns = POA.align_batch([graphs[i] for i in idxs], [wins[i][k] for i in idxs],
+                               POA_PARAMS, device=device)
+        for i, a in zip(idxs, alns):
+            graphs[i].add_alignment(a, wins[i][k])
+        rounds.append(alns)
+    return rounds, [g.generate_consensus() for g in graphs]
+
+
+def poa_ops_per_step(torch, POA) -> dict:
+    """The torch ops (kernels, on the card) of one fill row step and one walk
+    step of ops.poa's aligner, counted on the CPU under a dispatch mode
+    (views and scalar wrappers launch nothing and are not counted)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    free = {"view", "unbind", "slice", "select", "expand", "unsqueeze", "squeeze", "alias",
+            "detach", "as_strided", "_unsafe_view", "scalar_tensor", "lift_fresh"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func.__name__.split(".")[0] not in free
+            return func(*args, **(kwargs or {}))
+
+    al = POA._Aligner(2, 64, 64, 4, 132, "nw", POA_PARAMS, POA.FIX_PASSES, torch.device("cpu"))
+    out = {}
+    for name, fn in (("row_step", al._row_step), ("walk_step", al._walk_step)):
+        with Count() as c:
+            fn()
+        out[name] = c.n
+    return out
+
+
+def poa_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 18: the poa main path, cell poa-64x10x750."""
+    cli, POA, PO = port.cli_poa, port.POA, port.poa_oracle
+    (HERE / "build").mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed)
+    windows = synth_windows(rng, POA_WINDOWS, POA_SEQS, POA_LEN)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        fasta = Path(tmp) / "windows.fa"
+        write_fasta(fasta, [s for w in windows for s in w],
+                    [f"{int(i > 0)}_{w}_{i}" for w in range(POA_WINDOWS) for i in range(POA_SEQS)])
+
+        # the timed run: the CLI's read and msa_consensus_batch
+        port.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = cli.read_batches(str(fasta))
+        t1 = time.perf_counter()
+        timings, stats = {}, {}
+        cons = POA.msa_consensus_batch(batches, POA_PARAMS, timings=timings, device=DEVICE,
+                                       stats=stats)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = port.launches()
+        n_seqs = sum(len(b) for b in batches)
+        rounds = stats["rounds"]
+        ops = poa_ops_per_step(torch, POA)
+        e2e = {"windows": len(batches), "seqs": n_seqs,
+               "bases": sum(len(s) for b in batches for s in b), "load_s": t1 - t0,
+               **{f"{k}_s": v for k, v in timings.items()}, **stats, "total_s": t2 - t0,
+               "seqs_per_s_end_to_end": n_seqs / (t2 - t0),
+               "fill_rows_per_round": stats["fill_rows"] / rounds,
+               "tb_steps_per_round": stats["tb_steps"] / rounds,
+               "fixpoint_reruns": stats.get("reruns", 0),
+               "host_syncs_per_round": stats["syncs"] / rounds,
+               "ops_per_row_step": ops["row_step"], "ops_per_walk_step": ops["walk_step"],
+               "kernels_per_round": (ops["row_step"] * stats["fill_rows"]
+                                     + ops["walk_step"] * stats["tb_steps"]) / rounds,
+               "graph_replays_per_round": (stats["fill_rows"]
+                                           + stats["tb_steps"] // POA.TB_BLOCK) / rounds,
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "kernel_launches": sum(launches.values()), "card": rec.card}
+        log("poa-64x10x750 end to end " + json.dumps(e2e))
+        if (batches != windows or len(cons) != POA_WINDOWS or rounds != POA_SEQS
+                or any(launches.values())
+                or not all(POA_LEN - 60 < len(c) < POA_LEN + 60 for c in cons)):
+            fail(f"poa-64x10x750: {e2e}, consensus lengths {sorted(len(c) for c in cons)}")
+
+        # the CLI's stdout for the file against the pooled consensus
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            cli.main(["-s", str(fasta)])
+        lines = out.getvalue().splitlines()
+        want = [f"Number of batches: {POA_WINDOWS}"] + [
+            f"batches[{i}].consensus_seq: {c}" for i, c in enumerate(cons)]
+        if lines[:-1] != want or not lines[-1].startswith("Runtime: "):
+            fail("the poa CLI's stdout differs from the pooled consensus")
+        log(f"poa CLI: its stdout is the pooled consensus ({time.perf_counter() - t0:.1f} s)")
+
+    # two windows on the card and the CPU: every round's alignments and the
+    # consensus (the main run's too)
+    t0 = time.perf_counter()
+    sub = windows[:POA_CPU_WINDOWS]
+    card, cpu = poa_lockstep(POA, PO, sub, DEVICE), poa_lockstep(POA, PO, sub, "cpu")
+    log(f"poa card vs CPU: {POA_CPU_WINDOWS} windows, {len(card[0])} rounds, alignments "
+        f"{'equal' if card[0] == cpu[0] else 'differ'}, consensus "
+        f"{'equal' if card[1] == cpu[1] == cons[:POA_CPU_WINDOWS] else 'differs'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if card != cpu or card[1] != cons[:POA_CPU_WINDOWS]:
+        fail("poa: the card and the CPU disagree")
+
+    # seeded small windows against the port's oracle, exactly
+    n_win, n_seq, length = POA_ORACLE
+    small = synth_windows(rng, n_win, n_seq, length)
+    got = POA.msa_consensus_batch(small, POA_PARAMS, device=DEVICE)
+    want = [PO.msa_consensus(w, PO.PoaParams(*POA_PARAMS)) for w in small]
+    log(f"poa oracle sample: {sum(a == b for a, b in zip(got, want))}/{n_win} windows of "
+        f"{n_seq} x {length} exact")
+    if got != want:
+        fail("poa consensus differs from the port's oracle")
+
+    # the reference goldens on the card: 48 windows (nw), 10 cases in sw and ov
+    t0 = time.perf_counter()
+    fx = HERE / "tests" / "fixtures"
+    cases = json.loads((fx / "poa_golden.json").read_text())["cases"]
+    batches = [seqs for case in cases for seqs in case["batches"]]
+    wants = [w for case in cases for w in case["consensus"]]
+    good = sum(a == b for a, b in zip(POA.msa_consensus_batch(batches, device=DEVICE), wants))
+    golden = json.loads((fx / "poa_swov_golden.json").read_text())["cases"]
+    swov = {}
+    for atype in ("sw", "ov"):
+        graphs = [PO.PoaGraph() for _ in golden]
+        exact = [True] * len(golden)
+        for k in range(max(len(c["seqs"]) for c in golden)):
+            idxs = [ci for ci, c in enumerate(golden) if k < len(c["seqs"])]
+            alns = POA.align_batch([graphs[ci] for ci in idxs],
+                                   [golden[ci]["seqs"][k] for ci in idxs], align_type=atype,
+                                   device=DEVICE)
+            for ci, aln in zip(idxs, alns):
+                exact[ci] &= [list(p) for p in aln] == golden[ci][atype]["alignments"][k]
+                graphs[ci].add_alignment(aln, golden[ci]["seqs"][k])
+        swov[atype] = sum(ok and g.generate_consensus() == c[atype]["consensus"]
+                          for ok, g, c in zip(exact, graphs, golden))
+    log(f"poa goldens: poa_golden.json {good}/{len(wants)} consensus exact; "
+        f"poa_swov_golden.json sw {swov['sw']}/{len(golden)}, ov {swov['ov']}/{len(golden)} "
+        f"(alignments and consensus) ({time.perf_counter() - t0:.1f} s)")
+    if good != len(wants) or any(v != len(golden) for v in swov.values()) or not wants:
+        fail(f"poa goldens: {good}/{len(wants)}, {swov}")
+
 
 def occ_bound(rows_needed: int, n_idx: int, row_bytes: int):
     """Least time (ms) for a gather fold: the distinct rows (or tiles) its
@@ -3057,6 +3415,7 @@ def main(argv=None) -> int:
                 log(f"  ptxas {lib_path.name}: {ln.strip()}")
 
     rec = Record(port.launches())
+    rec.card = smi
     # the fmi engine is launch-bound, and every launch after a torch.profiler
     # trace costs more (PERF.md §6): phases 11-12 run before any profile
     occ_phase(torch, port, rec, args.seed)
@@ -3066,6 +3425,8 @@ def main(argv=None) -> int:
     chain_phases(torch, port, rec, args.seed)
     abea_phases(torch, port, rec, args.seed)
     eventalign_phase(torch, port, rec, args.seed)
+    kmer_phase(torch, port, rec, args.seed)
+    poa_phase(torch, port, rec, args.seed)
     bsw_roofline_phase(torch, port, rec, args.seed)
     chain_roofline_phase(torch, port, rec)
     abea_chain_lines(rec)

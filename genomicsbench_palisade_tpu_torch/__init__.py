@@ -9,7 +9,11 @@ Smith-Waterman extension (`ops.bsw`, kernel `csrc/bsw_extend.cu`, CLI
 alignment (`ops.events` host prep, `ops.abea`, kernels `csrc/abea_fill.cu`
 and `csrc/abea_walk.cu`, CLI `cli.abea`), in read coordinates and in the
 eventalign mode (`io.bam`, `ops.eventalign`: QC, the reference-space
-realign and the TSV).
+realign and the TSV), Flye's canonical k-mer counter (`ops.kmer`, the
+sort-reduce counter and its streamed accumulator as torch ops, CLI
+`cli.kmer_cnt`) and spoa's partial-order alignment (`ops.poa`, the convex
+graph alignment of many windows in lockstep as torch ops, the graphs on
+the host in `ops.oracle.poa`; CLI `cli.poa`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU and no explicit device they raise.  Kernels are built at first use,

@@ -26,6 +26,11 @@ fmi's weights are the FM index: `fmi_index_from_numpy` takes a built index
 (`index.fmi_index.DeviceFmIndex`) or the JAX package's device dict
 (`DeviceFmIndex.as_device_arrays()`: `cp_pack` u32 [blocks, 16], `count`,
 `sentinel_index`) and returns the tensors `ops.fmi` reads.
+
+kmer and poa carry no weights; their batches are data.  kmer's is the int8
+code matrix of a batch of reads (`kmer_batch_from_numpy`), poa's the
+rank-space graph arrays of `ops.poa.graph_to_arrays` stacked over windows,
+with the windows' sequence codes (`poa_batch_from_numpy`).
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ def tables_from_numpy(tables_np, device) -> dict:
             for k in TABLE_KEYS}
 
 
-_NP = {torch.int8: np.int8, torch.int32: np.int32, torch.int64: np.int64,
+_NP = {torch.bool: np.bool_, torch.int8: np.int8, torch.int32: np.int32, torch.int64: np.int64,
        torch.float32: np.float32, torch.float64: np.float64}
 ABEA_MODEL_KEYS = ("level_mean", "level_stdv", "level_log_stdv")
 
@@ -155,3 +160,34 @@ def fmi_index_from_numpy(d, device) -> dict:
     return {"cp_occ": torch.from_numpy(np.ascontiguousarray(cp_occ, dtype=np.int64)).to(device),
             "count": torch.from_numpy(np.asarray(count).astype(np.int64)).to(device),
             "sentinel_index": int(sentinel)}
+
+
+def kmer_batch_from_numpy(bases, lengths, device):
+    """(int8 [B, L] codes, int32 [B] lengths) on `device` from
+    `ops.kmer.encode_reads_np` / `pad_codes_np`'s padded matrix."""
+    return (torch.from_numpy(np.ascontiguousarray(bases, dtype=np.int8)).to(device),
+            torch.from_numpy(np.ascontiguousarray(lengths, dtype=np.int32)).to(device))
+
+
+POA_DTYPES = {"code": torch.int32, "preds": torch.int64, "npreds": torch.int32,
+              "out_empty": torch.bool, "n_nodes": torch.int32}
+
+
+def poa_batch_from_numpy(garrs, seq_arr, seq_len, device, p_slots: int | None = None):
+    """The device aligner's batch on `device`: each window's graph arrays
+    (`ops.poa.graph_to_arrays` dicts, one a window, stacked on a leading
+    window axis), its sequence codes seq_arr [B, w_cap-1] and lengths
+    seq_len [B] as int32, and "rows", the largest graph's nodes (an int).
+    `p_slots` keeps that many predecessor slots a node (the batch's widest
+    in-degree, rounded; slots past a node's in-degree are masked, so fewer
+    slots change no output)."""
+    out = {}
+    for k, dt in POA_DTYPES.items():
+        a = np.stack([g[k] for g in garrs])
+        if k == "preds" and p_slots is not None:
+            a = a[:, :, :p_slots]
+        out[k] = torch.from_numpy(np.ascontiguousarray(a, dtype=_NP[dt])).to(device)
+    out["seq"] = torch.from_numpy(np.ascontiguousarray(seq_arr, dtype=np.int32)).to(device)
+    out["seqlen"] = torch.from_numpy(np.ascontiguousarray(seq_len, dtype=np.int32)).to(device)
+    out["rows"] = int(max(g["n_nodes"] for g in garrs))
+    return out

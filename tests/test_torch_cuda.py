@@ -17,7 +17,9 @@ and the index builder compute in int64, so the card's results must equal
 the CPU's exactly; the roofline probes' kernels (bsw_stripped, chain_micro)
 compute in int32 that wraps, so every output must be equal; the eventalign
 mode's realign runs the same elementwise f32 ops on both devices, so its
-TSV must be equal byte for byte.
+TSV must be equal byte for byte; the k-mer counter and the POA aligner
+are integer torch ops (no hand-written kernel), so their metrics,
+alignments and consensus strings must equal the goldens and the CPU's.
 """
 
 import json
@@ -47,14 +49,17 @@ from genomicsbench_palisade_tpu_torch.ops import chain as C
 from genomicsbench_palisade_tpu_torch.ops import chain_cuda
 from genomicsbench_palisade_tpu_torch.ops import chain_micro as CM
 from genomicsbench_palisade_tpu_torch.ops import fmi_pipeline as FP
+from genomicsbench_palisade_tpu_torch.ops import kmer as KM
 from genomicsbench_palisade_tpu_torch.ops import occ_gather as G
 from genomicsbench_palisade_tpu_torch.ops import phmm as P
 from genomicsbench_palisade_tpu_torch.ops import phmm_cuda
+from genomicsbench_palisade_tpu_torch.ops import poa as POA
 from genomicsbench_palisade_tpu_torch.ops.events import (detect_events_batch,
                                                          estimate_scalings_mom_batch)
 from genomicsbench_palisade_tpu_torch.ops.oracle import abea as AO
 from genomicsbench_palisade_tpu_torch.ops.oracle import bsw as WO
 from genomicsbench_palisade_tpu_torch.ops.oracle import phmm as O
+from genomicsbench_palisade_tpu_torch.ops.oracle import poa as POAO
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the edge-case generators)
@@ -782,3 +787,48 @@ def test_chain_micro_wrapper_checks_inputs(cuda):
     zc2 = torch.zeros(2, dtype=torch.int32, device=cuda)
     got = kernel(x, x, torch.full_like(x, 15), zc2, zc2, 4200, 500)
     assert torch.equal(got, CM.chain_micro_plain(x, x, torch.full_like(x, 15), zc2, zc2, 4200, 500))
+
+
+@pytest.mark.cuda
+def test_kmer_goldens_on_card_and_card_equal_cpu(cuda, fixtures_dir):
+    """The 25 kmer goldens through both counters on the card; k = 31 and
+    32 (bit 63 reached) on coverage reads, card against CPU."""
+    for case in json.load(open(fixtures_dir / "kmer_golden.json"))["cases"]:
+        args = dict(k=case["k"], min_read_length=case["min_read_length"], device=cuda)
+        for got in (KM.count_kmers(case["reads"], **args),
+                    KM.count_kmers_batched(case["reads"], batch_bases=600, cap=1 << 13, **args)):
+            assert (got["total_kmers"], got["hash_size"]) == (case["total_kmers"],
+                                                              case["hash_size"])
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, 4000)
+    reads = ["".join("ACGT"[c] for c in genome[s : s + 900])
+             for s in rng.integers(0, 3100, 64)]
+    for k in (31, 32):
+        args = dict(k=k, min_read_length=500, batch_bases=9_000, cap=1 << 16)
+        want = KM.count_kmers_batched(reads, device="cpu", **args)
+        assert KM.count_kmers_batched(reads, device=cuda, **args) == want
+        assert KM.count_kmers(reads, k=k, min_read_length=500, device=cuda) == want
+
+
+@pytest.mark.cuda
+def test_poa_goldens_on_card(cuda, fixtures_dir):
+    """The 48 poa goldens (nw) through msa_consensus_batch on the card
+    (the row step and the walk blocks as CUDA graphs), and the 10 sw/ov
+    cases' alignments exactly."""
+    cases = json.load(open(fixtures_dir / "poa_golden.json"))["cases"]
+    batches = [seqs for case in cases for seqs in case["batches"]]
+    assert POA.msa_consensus_batch(batches, device=cuda) == [w for case in cases
+                                                              for w in case["consensus"]]
+    golden = json.load(open(fixtures_dir / "poa_swov_golden.json"))["cases"]
+    for atype in ("sw", "ov"):
+        graphs = [POAO.PoaGraph() for _ in golden]
+        for k in range(max(len(c["seqs"]) for c in golden)):
+            idxs = [ci for ci, c in enumerate(golden) if k < len(c["seqs"])]
+            alns = POA.align_batch([graphs[ci] for ci in idxs],
+                                   [golden[ci]["seqs"][k] for ci in idxs], align_type=atype,
+                                   device=cuda)
+            for ci, aln in zip(idxs, alns):
+                assert [list(p) for p in aln] == golden[ci][atype]["alignments"][k]
+                graphs[ci].add_alignment(aln, golden[ci]["seqs"][k])
+        assert [g.generate_consensus() for g in graphs] == [c[atype]["consensus"]
+                                                            for c in golden]
