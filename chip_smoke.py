@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's PairHMM, bsw, chain, abea (read-coordinate and
-eventalign modes), fmi, kmer and poa paths and its occ-gather, bsw roofline
-and chain roofline probes on one GPU and hold their kernels to their plain
-PyTorch versions.
+eventalign modes), fmi, kmer, poa, grm, basecall and call_var paths and its
+occ-gather, bsw roofline and chain roofline probes on one GPU and hold their
+kernels to their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, run in the order 1, 2, 11, 12, 3-10, 16, 17, 18, 13-15 (any failure
+Phases, run in the order 1, 2, 11, 12, 3-10, 16-21, 13-15 (any failure
 exits non-zero and prints no result):
   1. environment: Python, torch, CUDA, nvcc and the card (nvidia-smi);
   2. build csrc/phmm_forward.cu, csrc/bsw_extend.cu, csrc/chain_dp.cu,
@@ -218,6 +218,34 @@ exits non-zero and prints no result):
      alignment and the consensus equal); 4 seeded windows of 6 x 200 bases
      against the port's oracle; the 48 poa goldens (nw) and the 10 sw/ov
      cases on the card, exactly;
+ 19. the grm main path, cell grm-8192x65536 (tools/bench_all.py:405-431's
+     genotypes: dosage 0/1/2 at 0.5/0.3/0.15, 5% missing, seeded from
+     --seed): 65,536 variants x 8,192 samples written as a .bed by the
+     port's write_bed, then `cli.grm` with --maf 0.01 --make-grm-bin at its
+     default block (512), no hand-written kernel on the path (launch counts
+     must stay 0); the split read / filter / H2D / products / D2H / write,
+     variants/s end to end, the products' TFLOP/s, peak device memory; the
+     CLI's lines; the written .grm.N.bin's diagonal against V's integer
+     column sums (exactly) and the first 16 samples' .grm.bin against
+     float64 over every variant (2e-5); the products timed in each
+     precision mode; a 2,048 x 512 cut on the card and the CPU in every
+     mode (counts exact, GRM within 2e-5); the 25 grm goldens on the card;
+ 20. the basecall main path, cell basecall-512: abea-512's 512 reads (the
+     same signals from --seed, 29.6 M samples) through `cli.basecall` with
+     the full DNA_R941 model, seeded weights, chunks of 4,000, --precision
+     bf16, --beamsize 1; the split normalise / forward / decode, samples/s
+     (the CLI's own figure and end to end), the forward's TFLOP/s, peak
+     device memory; the FASTA (512 records over ACGT); bonito_golden.npz at
+     f32 on the card within atol 5e-4 (fails if TF32 leaks in); bf16
+     against f32 frame labels and called reads on the first 64 reads; card
+     f32 log-probs against the CPU's on 4 reads (5e-4); the 4 shortest
+     reads at the default --beamsize 5 (the Python beam's host time);
+ 21. the call_var main path, cell clair-131072: 32 batches of 4,096 pileup
+     tensors [33, 8, 4] of Poisson(3) counts (seeded from --seed) in one
+     npz through `cli.call_var` with seeded weights; load / predict /
+     write, tensors/s, TFLOP/s, peak device memory; the four heads' shapes
+     and sums; clair_golden.npz on the card (2e-5); one batch on the card
+     and the CPU (2e-5) and against the CLI's rows;
  15. the abea chain cost: per abea cell the ns and SM cycles (at the
      median clock of phases 13-14) a band of the fill and a step of the
      walk, and the chain floors; each kernel's device seconds over one
@@ -227,13 +255,16 @@ exits non-zero and prints no result):
 Every measurement is printed as it is taken.  Needs one CUDA card; without
 one it exits 1.  The bsw dataset (~3.8 GB), the chain dump (~236 MB), the
 abea signals (~118 MB, twice: phases 10 and 16), the fmi reads and
-index npz (~0.5 GB), the kmer reads (~255 MB) and the poa windows are
-written under build/ beside this script and deleted at the end.
+index npz (~0.5 GB), the kmer reads (~255 MB), the poa windows, the grm
+.bed (~134 MB) and its outputs (~268 MB), the basecall signals (~118 MB)
+and the clair tensors (~554 MB) are written under build/ beside this
+script and deleted at the end.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import gc
 import io
@@ -310,23 +341,25 @@ ABEA_LENS = (1000, 13450)  # 3,698,945 bases: -B 3.7M of the reference's GPU run
 ABEA_MAX_BASES = "3.7M"  # -B of the reference's GPU run (scripts/run-gpu.sh:32)
 ABEA_CLI_READS = 20
 ABEA_ORACLE_READS = 8
-# kmer-0.25g: tools/kmer_scale_bench.py's synth_reads (genome_mbp, read_len,
-# err) at its --gbp 0.25 rehearsal (KMER_SCALE.json), the driver's config
-KMER_READS = 25_000  # 250 Mbp of 10,000-base reads: past the CLI's 192 Mbp, so streamed
-KMER_READ_LEN = 10_000
-KMER_GENOME_MBP = 25
-KMER_ERR = 0.001
-KMER_K = 17
-KMER_MIN_LEN = 5_000  # the driver's minimum overlap (cli/kmer_cnt.py --min-ovlp)
-KMER_MERGES = 3  # 96 Mbp batches (count_kmers_batched's default)
-KMER_PARITY_READS = 512
-KMER_WIDE_READS = 64  # reads counted at k = 31 and 32, card against CPU
-# poa-64x10x750: tools/poa_scale_bench.py's synth_windows at its defaults,
-# the reference driver's scores (oe1 = o1+e1, oe2 = o2+e2)
-POA_WINDOWS, POA_SEQS, POA_LEN = 64, 10, 750
-POA_PARAMS = (2, -4, -6, -2, -25, -1)
-POA_CPU_WINDOWS = 2  # windows held card against CPU round by round
-POA_ORACLE = (4, 6, 200)  # windows x sequences x bases against the port's oracle
+# grm-8192x65536: tools/bench_all.py:405-431's genotypes (dosage 0/1/2 at
+# 0.5/0.3/0.15, 5% missing) at 8,192 samples x 65,536 variants, as a .bed
+# through the CLI at its default block and the reference's --maf 0.01
+GRM_SAMPLES, GRM_VARIANTS = 8192, 65_536
+GRM_MAF = 0.01
+GRM_CUT = (2048, 512)  # variants x samples of the cell held card against CPU in every mode
+GRM_F64_SAMPLES = 16  # the card's GRM of these samples against float64 over all variants
+GRM_TOL = 2e-5  # plink2's single-precision contract
+# basecall-512: abea-512's reads (the same signals from --seed) through
+# cli.basecall's main path, the full DNA_R941 model with seeded weights
+BASECALL_CHUNK = 4000
+BASECALL_F32_READS = 64  # reads called at f32 too: bf16 against f32 frame labels
+BASECALL_CPU_READS = 4  # card f32 log-probs against the CPU's
+BASECALL_BEAM_READS = 4  # the shortest reads at the default --beamsize 5
+BASECALL_TOL = 5e-4  # bonito_golden.npz's atol, and card f32 against CPU f32
+# clair-131072: 32 batches of 4,096 pileup tensors [33, 8, 4] (Poisson counts)
+CLAIR_BATCHES, CLAIR_BATCH = 32, 4096
+CLAIR_LAMBDA = 3.0
+CLAIR_TOL = 2e-5  # clair_golden.npz's atol, and card against CPU
 # the main paths' outputs held to the plain versions: chain-1001's calls of
 # up to CHAIN_PLAIN_MAX_N anchors (the plain version steps once per anchor
 # of its longest call) and abea-512's reads of up to ABEA_PLAIN_MAX_BASES
@@ -1105,6 +1138,76 @@ def synth_windows(rng, n_win: int, n_seq: int, length: int):
     return batches
 
 
+def synth_genotypes(rng, m: int, n: int, rows: int = 4096) -> np.ndarray:
+    """tools/bench_all.py:416's genotypes: [m, n] int8 dosage 0/1/2 at
+    0.5/0.3/0.15 and 3 (missing) at 0.05, drawn as uniform thresholds a
+    block of rows at a time."""
+    geno = np.empty((m, n), np.int8)
+    for s in range(0, m, rows):
+        u = rng.random((min(rows, m - s), n), dtype=np.float32)
+        geno[s : s + rows] = ((u >= 0.5).view(np.int8) + (u >= 0.8).view(np.int8)
+                              + (u >= 0.95).view(np.int8))
+    return geno
+
+
+def bonito_weight_arrays(names_shapes, seed=20260825) -> dict:
+    """tests/generate_fixtures.py:_bonito_weight_arrays: bonito_golden.npz's
+    weights, one rng stream over the state dict's key order."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in names_shapes:
+        if name.endswith("num_batches_tracked"):
+            out[name] = np.zeros(shape, np.int64)
+        elif "running_var" in name:
+            out[name] = rng.uniform(0.5, 2.0, shape).astype(np.float32)
+        elif "running_mean" in name:
+            out[name] = rng.normal(0, 0.3, shape).astype(np.float32)
+        else:
+            out[name] = rng.normal(0, 0.08, shape).astype(np.float32)
+    return out
+
+
+def clair_variables(seed=20260826, units=128) -> dict:
+    """tests/generate_fixtures.py:_clair_variables: clair_golden.npz's TF1
+    variable map, one rng stream over the reference graph's variables."""
+    names = []
+    for scope, n_in in (("LSTM1", 32), ("LSTM2", 256)):
+        for d in ("fw", "bw"):
+            base = (f"{scope}/stack_bidirectional_rnn/cell_0/"
+                    f"bidirectional_rnn/{d}/cudnn_compatible_lstm_cell")
+            names += [(base + "/kernel", (n_in + units, 4 * units)), (base + "/bias", (4 * units,))]
+    for c in range(2 * units):
+        names += [(f"L3/Unit_{c}/kernel", (33, 30)), (f"L3/Unit_{c}/bias", (30,))]
+    names += [("L4/kernel", (30 * 256, 192)), ("L4/bias", (192,))]
+    for k in range(4):
+        names += [(f"L5_{k + 1}/kernel", (192, 96)), (f"L5_{k + 1}/bias", (96,))]
+    heads = ("Y_base_change_logits", "Y_genotype_logits", "Y_indel_length_logits_1",
+             "Y_indel_length_logits_2")
+    for k, out in enumerate((21, 3, 33, 33)):
+        names += [(f"Prediction/{heads[k]}/kernel", (96, out)),
+                  (f"Prediction/{heads[k]}/bias", (out,))]
+    rng = np.random.default_rng(seed)
+    return {name: rng.normal(0, 0.08, shape).astype(np.float32) for name, shape in names}
+
+
+def bonito_flops(blocks, t: int, n_classes: int = 5) -> int:
+    """2 x the multiply-adds of the model's convolutions on one chunk of t
+    samples (depthwise, pointwise, full, residual and decoder)."""
+    flops, c = 0, 1
+    for f, rep, k, s, res, sep in blocks:
+        c_in, t_in = c, t
+        for _ in range(rep):
+            t = (t - 1) // s + 1  # padding k // 2 each side, odd k
+            flops += 2 * c * k * t if sep else 2 * c * f * k * t
+            if sep:
+                t = (t - 1) // s + 1  # the pointwise conv carries the stride too
+                flops += 2 * c * f * t
+            c = f
+        if res:
+            flops += 2 * c_in * f * t_in
+    return flops + 2 * c * n_classes * t
+
+
 def strip_edge_batch(rng, qe_pad: int, tp: int, n: int):
     """(q_codes, target, h_init, e_init) int32 numpy for `bsw_stripped`: n
     pairs from each of four starts side by side (zero; seeded, H 0-60 and E
@@ -1351,6 +1454,12 @@ class Port:
         from genomicsbench_palisade_tpu_torch.cli import fmi as cli_fmi
         from genomicsbench_palisade_tpu_torch.cli import kmer_cnt as cli_kmer
         from genomicsbench_palisade_tpu_torch.cli import poa as cli_poa
+        from genomicsbench_palisade_tpu_torch.cli import basecall as cli_basecall
+        from genomicsbench_palisade_tpu_torch.cli import call_var as cli_call_var
+        from genomicsbench_palisade_tpu_torch.cli import grm as cli_grm
+        from genomicsbench_palisade_tpu_torch.io import plink
+        from genomicsbench_palisade_tpu_torch.models import bonito, clair
+        from genomicsbench_palisade_tpu_torch.ops import grm as G
         from genomicsbench_palisade_tpu_torch.cli import phmm as cli
         from genomicsbench_palisade_tpu_torch.convert import (abea_batch_from_numpy,
                                                               bsw_batch_from_numpy,
@@ -1411,7 +1520,9 @@ class Port:
                           chain_micro=chain_micro, bsw_probe=bsw_probe, chain_probe=chain_probe,
                           tools=tools, bam=bam, EA=EA, ea_oracle=ea_oracle,
                           cli_kmer=cli_kmer, K=K, cli_poa=cli_poa, POA=POA,
-                          poa_oracle=poa_oracle, load_flye_cfg=load_flye_cfg)
+                          poa_oracle=poa_oracle, load_flye_cfg=load_flye_cfg,
+                          cli_grm=cli_grm, G=G, plink=plink, cli_basecall=cli_basecall,
+                          cli_call_var=cli_call_var, bonito=bonito, clair=clair)
         self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend, chain_cuda.chain_dp,
                         *abea_cuda.KERNELS, *occ_gather.KERNELS, *bsw_stripped.KERNELS,
                         *chain_micro.KERNELS]
@@ -2856,6 +2967,329 @@ def poa_phase(torch, port: Port, rec: Record, seed: int):
         fail(f"poa goldens: {good}/{len(wants)}, {swov}")
 
 
+def grm_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 19: the grm main path, cell grm-8192x65536."""
+    cli, G, plink = port.cli_grm, port.G, port.plink
+    n = GRM_SAMPLES
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        geno = synth_genotypes(np.random.default_rng(seed), GRM_VARIANTS, n)
+        t1 = time.perf_counter()
+        plink.write_bed(str(tmp / "cell"), geno)
+        log(f"grm dataset: {GRM_VARIANTS} variants x {n} samples, "
+            f"{(tmp / 'cell.bed').stat().st_size / 1e6:.1f} MB of .bed (made {t1 - t0:.2f} s, "
+            f"written {time.perf_counter() - t1:.2f} s)")
+
+        # the timed run: the CLI (read, --maf, H2D, products, D2H, write)
+        port.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        timings, out = {}, io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(["--bfile", str(tmp / "cell"), "--maf", str(GRM_MAF), "--make-grm-bin",
+                      "--out", str(tmp / "out")], timings=timings)
+        total = time.perf_counter() - t0
+        launches = port.launches()
+        kept_m = timings["variants"]
+        flops = 4 * kept_m * n * n  # ZᵀZ and VᵀV, two operations a multiply-add
+        e2e = {"variants": GRM_VARIANTS, "kept": kept_m, "samples": n,
+               **{k: timings[k] for k in ("read_s", "filter_s", "h2d_s", "products_s", "d2h_s",
+                                          "write_s")},
+               "total_s": total, "variants_per_s_end_to_end": GRM_VARIANTS / total,
+               "products_tflops": flops / timings["products_s"] / 1e12,
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "kernel_launches": sum(launches.values()), "card": rec.card}
+        log("grm-8192x65536 end to end " + json.dumps(e2e))
+        lines = out.getvalue().splitlines()
+        want = [f"{GRM_VARIANTS} variants, {n} samples loaded",
+                f"{GRM_VARIANTS - kept_m} variants removed due to allele frequency threshold(s)"]
+        if (lines[:2] != want or len(lines) != 3
+                or not lines[2].startswith(f"GRM written to {tmp / 'out'}.grm.bin (")
+                or any(launches.values()) or not 0 < kept_m <= GRM_VARIANTS):
+            fail(f"grm-8192x65536: {e2e}, printed {lines}")
+
+        # the written matrices: .grm.N.bin's diagonal is V's integer column
+        # sums; the first samples' GRM against float64 over every variant
+        t0 = time.perf_counter()
+        nbin = np.fromfile(tmp / "out.grm.N.bin", "<f4")
+        gbin = np.fromfile(tmp / "out.grm.bin", "<f4")
+        alt, nonmiss = G.allele_counts(geno)
+        kept = G.maf_filter(geno, GRM_MAF, (alt, nonmiss))
+        gk = geno if kept.all() else geno[kept]
+        freqs = G.allele_freqs(alt[kept], nonmiss[kept])
+        ok = 2.0 * freqs * (1.0 - freqs) > G.K_SMALL_EPSILON
+        col = np.zeros(n, np.int64)
+        for s in range(0, len(gk), 4096):
+            col += ((gk[s : s + 4096] != 3) & ok[s : s + 4096, None]).sum(0)
+        j = np.arange(n)
+        diag_exact = bool(np.array_equal(nbin[j * (j + 1) // 2 + j], col.astype(np.float32)))
+        k = GRM_F64_SAMPLES
+        sub = gk[:, :k].astype(np.float64)
+        dead = (gk[:, :k] == 3) | ~ok[:, None]
+        isd = np.where(ok, 1.0 / np.sqrt(np.where(ok, 2.0 * freqs * (1.0 - freqs), 1.0)), 0.0)
+        z = np.where(dead, 0.0, (sub - 2.0 * freqs[:, None]) * isd[:, None])
+        v = (~dead).astype(np.float64)
+        want64 = (z.T @ z) / np.maximum(v.T @ v, 1.0)
+        rows, cols = np.tril_indices(k)
+        f64_err = float(np.max(np.abs(gbin[rows * (rows + 1) // 2 + cols] - want64[rows, cols])
+                               / np.maximum(np.abs(want64[rows, cols]), 1.0)))
+        diag = gbin[j * (j + 1) // 2 + j]
+        log(f"grm outputs: {len(gbin)} values each, all finite {bool(np.isfinite(gbin).all())}; "
+            f"N.bin diagonal = V's column sums {diag_exact}; GRM diagonal mean "
+            f"{float(diag.mean()):.6f}; first {k} samples against float64: max rel err "
+            f"{f64_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+        if (len(gbin) != len(nbin) or len(gbin) != n * (n + 1) // 2 or not diag_exact
+                or not np.isfinite(gbin).all() or f64_err > GRM_TOL):
+            fail("grm-8192x65536's written matrices")
+
+        # the products in each precision mode on the cell's kept genotypes
+        geno_t = torch.from_numpy(gk).to(DEVICE)
+        args = [torch.from_numpy(a.astype(np.float32)).to(DEVICE) for a in (2.0 * freqs, isd)]
+        ok_t = torch.from_numpy(ok).to(DEVICE)
+        modes = {}
+        for prec in G.PRECISIONS:
+            ms, _ = time_ms(torch, lambda: G.grm_device(geno_t, *args, ok_t, 512, prec), 1)
+            modes[prec] = {"ms": ms, "tflops": flops / ms / 1e9}
+        del geno_t
+        log(f"grm products by precision mode at block 512 (CUDA events, one call each): "
+            f"{json.dumps(modes)} ({rec.card})")
+    del geno, gk
+
+    # card against CPU in every mode on a cut of the cell: counts exact,
+    # the GRM within 2e-5
+    cut = synth_genotypes(np.random.default_rng(seed), *GRM_CUT)
+    errs = {}
+    for prec in G.PRECISIONS:
+        card = G.compute_grm(cut, block=512, precision=prec, device=DEVICE)
+        cpu = G.compute_grm(cut, block=512, precision=prec, device="cpu")
+        errs[prec] = float(np.max(np.abs(card[0] - cpu[0]) / np.maximum(np.abs(cpu[0]), 1.0)))
+        if not np.array_equal(card[1], cpu[1]) or errs[prec] > GRM_TOL:
+            fail(f"grm {prec}: card and CPU disagree on {GRM_CUT} (grm {errs[prec]})")
+    log(f"grm card vs CPU on {GRM_CUT[0]} x {GRM_CUT[1]}: counts exact, GRM max rel err "
+        f"{json.dumps(errs)}")
+
+    # the 25 plink2 goldens on the card
+    cases = json.loads((HERE / "tests" / "fixtures" / "grm_golden.json").read_text())["cases"]
+    good = 0
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        for case in cases:
+            files = [Path(tmp) / f"c.{e}" for e in ("pgen", "pvar", "psam")]
+            files[0].write_bytes(base64.b64decode(case["pgen"]))
+            files[1].write_text(case["pvar"])
+            files[2].write_text(case["psam"])
+            geno = port.plink.read_pgen(*map(str, files))[0]
+            kept = G.maf_filter(geno, case["maf"])
+            grm, counts = G.compute_grm(geno[kept], device=DEVICE)
+            tril = np.tril_indices(geno.shape[1])
+            good += (len(geno) - int(kept.sum()) == case["removed"]
+                     and np.array_equal(counts[tril], np.array(case["n_bin"], np.float32))
+                     and np.allclose(grm[tril], np.array(case["grm_bin"], np.float32),
+                                     atol=GRM_TOL, rtol=GRM_TOL))
+    log(f"grm goldens grm_golden.json: {good}/{len(cases)} (N.bin exact, grm.bin 2e-5)")
+    if good != len(cases) or not cases:
+        fail(f"grm goldens: {good}/{len(cases)}")
+
+
+def basecall_chunks(n: int) -> int:
+    """Chunks models.bonito.chunk_signal cuts n samples into (overlap 0)."""
+    return n // BASECALL_CHUNK + 1 if n > BASECALL_CHUNK else 1
+
+
+def basecall_frames(n: int) -> int:
+    """Posterior frames (decode steps) of a read of n samples: every chunk of
+    a read longer than one is padded to BASECALL_CHUNK samples."""
+    if n <= BASECALL_CHUNK:
+        return -(-n // 3)
+    return basecall_chunks(n) * -(-BASECALL_CHUNK // 3)
+
+
+def basecall_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 20: the basecall main path, cell basecall-512."""
+    cli, Bm = port.cli_basecall, port.bonito
+    (HERE / "build").mkdir(exist_ok=True)
+    lengths = np.linspace(*ABEA_LENS, ABEA_READS).astype(int)
+    signals = {f"read{r}": sig for r, (_, sig)
+               in enumerate(golden_reads(lengths, np.random.default_rng(seed)))}
+    samples = sum(len(v) for v in signals.values())
+    chunks = sum(basecall_chunks(len(v)) for v in signals.values())
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        npz = Path(tmp) / "reads.npz"
+        np.savez(npz, **signals)
+        log(f"basecall dataset: abea-512's {len(signals)} reads, {samples} samples, "
+            f"{chunks} chunks of {BASECALL_CHUNK}")
+
+        # the timed run: the CLI at bf16, viterbi
+        port.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        timings, out, err = {}, io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli.main(["random", str(npz), "--chunksize", str(BASECALL_CHUNK), "--beamsize", "1",
+                      "--precision", "bf16"], timings=timings)
+        total = time.perf_counter() - t0
+        launches = port.launches()
+    flops = chunks * bonito_flops(Bm.DNA_R941_BLOCKS, BASECALL_CHUNK)
+    e2e = {"reads": timings["reads"], "samples": timings["samples"], "chunks": chunks,
+           "load_s": total - timings["duration_s"],
+           **{k: timings.get(k, 0.0) for k in ("normalise_s", "forward_s", "decode_s")},
+           "duration_s": timings["duration_s"],
+           "samples_per_s": timings["samples"] / timings["duration_s"],
+           "samples_per_s_end_to_end": timings["samples"] / total,
+           "forward_tflops": flops / timings["forward_s"] / 1e12,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "kernel_launches": sum(launches.values()), "card": rec.card}
+    log("basecall-512 end to end " + json.dumps(e2e))
+    log("basecall CLI stderr: " + " | ".join(err.getvalue().splitlines()))
+    called = {}
+    for rec_text in out.getvalue().split(">")[1:]:
+        name, seq = rec_text.rstrip("\n").split("\n")
+        called[name] = seq
+    if (list(called) != list(signals) or any(launches.values())
+            or not all(seq and set(seq) <= set("ACGT") for seq in called.values())
+            or f"> completed reads: {ABEA_READS}" not in err.getvalue()):
+        fail(f"basecall-512: {e2e}, {len(called)} records")
+
+    # bonito_golden.npz at f32 on the card (fails if TF32 leaks in)
+    data = np.load(HERE / "tests" / "fixtures" / "bonito_golden.npz")
+    model = Bm.load_reference_state(Bm.BonitoModel(), bonito_weight_arrays(
+        json.loads(str(data["names"])))).to(DEVICE)
+    with torch.no_grad():
+        got = model(torch.from_numpy(data["input"]).to(DEVICE)).cpu().numpy()
+    golden_err = float(np.max(np.abs(got - data["logits"])))
+    log(f"bonito golden on the card at f32: max abs err {golden_err:.3g} "
+        f"(atol {BASECALL_TOL}, rtol 1e-3)")
+    if not np.allclose(got, data["logits"], atol=BASECALL_TOL, rtol=1e-3):
+        fail(f"bonito golden on the card: {golden_err}")
+
+    # bf16 against f32 frame labels on the first reads; card f32 against CPU f32
+    t0 = time.perf_counter()
+    models = {(dev, str(dt)): cli.load_model("random", dt, device=dev)
+              for dev, dt in ((DEVICE, torch.bfloat16), (DEVICE, torch.float32),
+                              ("cpu", torch.float32))}
+
+    def posteriors(key, raw):
+        x = torch.from_numpy(Bm.chunk_signal(Bm.norm_by_noisiest_section(raw), BASECALL_CHUNK,
+                                             0)[:, None, :])
+        with torch.no_grad():
+            return Bm.stitch(models[key](x.to(key[0])), 0).cpu()
+
+    same_frames = frames = same_reads = same_cli = 0
+    cpu_err = 0.0
+    for i, name in enumerate(list(signals)[:BASECALL_F32_READS]):
+        lb = posteriors((DEVICE, "torch.bfloat16"), signals[name])
+        lf = posteriors((DEVICE, "torch.float32"), signals[name])
+        same_frames += int((lb.argmax(-1) == lf.argmax(-1)).sum())
+        frames += len(lb)
+        same_reads += Bm.viterbi_decode(lf) == called[name]
+        same_cli += Bm.viterbi_decode(lb) == called[name]
+        if i < BASECALL_CPU_READS:
+            cpu_err = max(cpu_err, max_abs_diff(torch, lf, posteriors(("cpu", "torch.float32"),
+                                                                      signals[name])))
+    log(f"basecall bf16 vs f32 on the first {BASECALL_F32_READS} reads: "
+        f"{same_frames / frames:.6f} of {frames} frame labels equal, {same_reads} reads called "
+        f"identically ({same_cli} bf16 reads equal the CLI's); card f32 vs CPU f32 on "
+        f"{BASECALL_CPU_READS} reads: max abs err {cpu_err:.3g} (tolerance {BASECALL_TOL}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if cpu_err > BASECALL_TOL:
+        fail(f"basecall: card and CPU f32 log-probs differ by {cpu_err}")
+
+    # the beam: the shortest reads at the default --beamsize 5 on the card's posteriors
+    beam_t, beam = {}, []
+    for name in list(signals)[:BASECALL_BEAM_READS]:
+        beam.append(cli.call_read(models[DEVICE, "torch.bfloat16"], signals[name],
+                                  BASECALL_CHUNK, 0, 5, beam_t))
+    steps = sum(basecall_frames(len(signals[k])) for k in list(signals)[:BASECALL_BEAM_READS])
+    log(f"basecall beam (--beamsize 5) on {BASECALL_BEAM_READS} reads: host {beam_t['beam_s']:.3f} "
+        f"s for ~{steps} steps ({beam_t['beam_s'] / steps * 1e3:.3f} ms a step); forward "
+        f"{beam_t['forward_s']:.3f} s; bases {[len(b) for b in beam]}")
+    if not all(b and set(b) <= set("ACGT") for b in beam):
+        fail("basecall: the beam called no bases")
+
+
+def clair_flops() -> int:
+    """2 x the multiply-adds of one pileup tensor through ClairModel."""
+    u, t = 128, 33
+    lstm = sum(2 * t * 4 * u * (n_in + u) * 2 for n_in in (32, 2 * u))
+    return lstm + 2 * (2 * u * t * 30 + 30 * 2 * u * 192 + 4 * 192 * 96 + 96 * (21 + 3 + 33 + 33))
+
+
+def clair_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 21: the call_var main path, cell clair-131072."""
+    cli, C = port.cli_call_var, port.clair
+    (HERE / "build").mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n = CLAIR_BATCHES * CLAIR_BATCH
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        batches = {f"X{i}": rng.poisson(CLAIR_LAMBDA, (CLAIR_BATCH, C.POSITIONS, C.MATRIX_ROW,
+                                                       C.MATRIX_NUM)).astype(np.float32)
+                   for i in range(CLAIR_BATCHES)}
+        np.savez(tmp / "tensors.npz", **batches)
+        log(f"clair dataset: {CLAIR_BATCHES} batches of {CLAIR_BATCH} tensors "
+            f"[{C.POSITIONS}, {C.MATRIX_ROW}, {C.MATRIX_NUM}], Poisson({CLAIR_LAMBDA}) counts, "
+            f"{(tmp / 'tensors.npz').stat().st_size / 1e6:.1f} MB ({time.perf_counter() - t0:.1f} s)")
+
+        # the timed run: the CLI with seeded weights
+        port.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        timings, out = {}, io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(["--input_fn", str(tmp / "tensors.npz"), "--output_fn",
+                      str(tmp / "pred.npz")], timings=timings)
+        total = time.perf_counter() - t0
+        launches = port.launches()
+        e2e = {"tensors": timings["tensors"], "batches": timings["batches"],
+               **{k: timings[k] for k in ("load_s", "predict_s", "write_s")}, "total_s": total,
+               "tensors_per_s": timings["tensors"] / timings["predict_s"],
+               "tensors_per_s_end_to_end": timings["tensors"] / total,
+               "predict_tflops": clair_flops() * timings["tensors"] / timings["predict_s"] / 1e12,
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "kernel_launches": sum(launches.values()), "card": rec.card}
+        log("clair-131072 end to end " + json.dumps(e2e))
+        pred = dict(np.load(tmp / "pred.npz"))
+    lines = out.getvalue().splitlines()
+    sums_ok = all(np.allclose(pred[h].sum(-1), 1.0, atol=1e-5) and np.isfinite(pred[h]).all()
+                  for h in cli.HEADS)
+    if (lines[0] != "Begin predicting..." or not lines[1].startswith("Time taken: ")
+            or [pred[h].shape for h in cli.HEADS] != [(n, s) for s in C.HEAD_SIZES]
+            or not sums_ok or any(launches.values())):
+        fail(f"clair-131072: {e2e}, printed {lines}")
+
+    # clair_golden.npz on the card
+    data = np.load(HERE / "tests" / "fixtures" / "clair_golden.npz")
+    model = C.ClairModel()
+    model.load_state_dict(C.load_tf_variables(clair_variables()))
+    model = model.eval().to(DEVICE)
+    with torch.no_grad():
+        got = [h.cpu().numpy() for h in model(torch.from_numpy(data["input"]).to(DEVICE))]
+    names = ("gt21", "genotype", "indel1", "indel2")
+    golden_err = max(float(np.max(np.abs(g - data[k]))) for g, k in zip(got, names))
+    log(f"clair golden on the card: max abs err {golden_err:.3g} (atol {CLAIR_TOL}, rtol 1e-4)")
+    if not all(np.allclose(g, data[k], atol=CLAIR_TOL, rtol=1e-4) for g, k in zip(got, names)):
+        fail(f"clair golden on the card: {golden_err}")
+
+    # one batch on the card and the CPU, and against the CLI's output
+    t0 = time.perf_counter()
+    x = torch.from_numpy(batches["X0"])
+    with torch.no_grad():
+        card = [h.cpu() for h in cli.load_model(None, DEVICE)(x.to(DEVICE))]
+        cpu = cli.load_model(None, "cpu")(x)
+    err = max(max_abs_diff(torch, a, b) for a, b in zip(card, cpu))
+    cli_err = max(float(np.max(np.abs(a.numpy() - pred[h][:CLAIR_BATCH])))
+                  for a, h in zip(card, cli.HEADS))
+    log(f"clair card vs CPU on one batch of {CLAIR_BATCH}: max abs err {err:.3g} (tolerance "
+        f"{CLAIR_TOL}); against the CLI's X0 rows {cli_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+    if err > CLAIR_TOL or cli_err > CLAIR_TOL:
+        fail(f"clair: card and CPU disagree ({err}, {cli_err})")
+
+
 def occ_bound(rows_needed: int, n_idx: int, row_bytes: int):
     """Least time (ms) for a gather fold: the distinct rows (or tiles) its
     indices pick, each read once (row_bytes each), the indices (4 bytes
@@ -3427,6 +3861,9 @@ def main(argv=None) -> int:
     eventalign_phase(torch, port, rec, args.seed)
     kmer_phase(torch, port, rec, args.seed)
     poa_phase(torch, port, rec, args.seed)
+    grm_phase(torch, port, rec, args.seed)
+    basecall_phase(torch, port, rec, args.seed)
+    clair_phase(torch, port, rec, args.seed)
     bsw_roofline_phase(torch, port, rec, args.seed)
     chain_roofline_phase(torch, port, rec)
     abea_chain_lines(rec)

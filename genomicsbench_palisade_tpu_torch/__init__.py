@@ -13,7 +13,11 @@ realign and the TSV), Flye's canonical k-mer counter (`ops.kmer`, the
 sort-reduce counter and its streamed accumulator as torch ops, CLI
 `cli.kmer_cnt`) and spoa's partial-order alignment (`ops.poa`, the convex
 graph alignment of many windows in lockstep as torch ops, the graphs on
-the host in `ops.oracle.poa`; CLI `cli.poa`).
+the host in `ops.oracle.poa`; CLI `cli.poa`), plink2's GRM (`io.plink`,
+`ops.grm`: the blocked ZᵀZ as float32 torch products; CLI `cli.grm`) and
+the two NN models as torch modules (`models.bonito`, CLI `cli.basecall`;
+`models.clair`, CLI `cli.call_var`; flax weights through
+`io.flax_msgpack`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU and no explicit device they raise.  Kernels are built at first use,

@@ -30,7 +30,15 @@ fmi's weights are the FM index: `fmi_index_from_numpy` takes a built index
 kmer and poa carry no weights; their batches are data.  kmer's is the int8
 code matrix of a batch of reads (`kmer_batch_from_numpy`), poa's the
 rank-space graph arrays of `ops.poa.graph_to_arrays` stacked over windows,
-with the windows' sequence codes (`poa_batch_from_numpy`).
+with the windows' sequence codes (`poa_batch_from_numpy`).  grm's batch is
+its int8 genotype matrix, which `ops.grm.compute_grm` carries itself.
+
+The NN models' weights are the JAX package's flax params (numpy arrays,
+e.g. from `io.flax_msgpack`): `bonito_state_from_flax` gives the reference
+bonito checkpoint's state dict (the inverse of the JAX
+`load_torch_state_dict`, as its `save_torch_state_dict :267-310`), which
+`models.bonito.load_reference_state` loads; `clair_state_from_flax` gives
+`models.clair.ClairModel`'s.
 """
 
 from __future__ import annotations
@@ -191,3 +199,71 @@ def poa_batch_from_numpy(garrs, seq_arr, seq_len, device, p_slots: int | None = 
     out["seqlen"] = torch.from_numpy(np.ascontiguousarray(seq_len, dtype=np.int32)).to(device)
     out["rows"] = int(max(g["n_nodes"] for g in garrs))
     return out
+
+
+def _params(tree):
+    """flax's {"params": ..., "batch_stats": ...} or the bare params."""
+    return tree.get("params", tree), tree.get("batch_stats", {})
+
+
+def _conv_w(kernel):  # flax [k, in/groups, out] -> torch [out, in/groups, k]
+    return np.ascontiguousarray(np.transpose(np.asarray(kernel, np.float32), (2, 1, 0)))
+
+
+def bonito_state_from_flax(tree, blocks=None) -> dict:
+    """The JAX BonitoModel's params (and batch_stats) as a reference bonito
+    state dict of float32 tensors (`encoder.encoder.{i}.conv.{idx}...`,
+    BatchNorm at idx + 1, act and dropout between repeats)."""
+    from .models.bonito import DNA_R941_BLOCKS
+
+    p, bs = _params(tree)
+    out = {}
+
+    def bn(key, scale_bias, stats):
+        out[key + ".weight"] = scale_bias["scale"]
+        out[key + ".bias"] = scale_bias["bias"]
+        out[key + ".running_mean"] = stats["mean"]
+        out[key + ".running_var"] = stats["var"]
+
+    for i, (_f, rep, _k, _s, res, sep) in enumerate(blocks or DNA_R941_BLOCKS):
+        blk, stats = p[f"block{i}"], bs[f"block{i}"]
+        for r in range(rep):
+            tcs, idx = blk[f"tcs{r}"], f"encoder.encoder.{i}.conv.{4 * r}"
+            for name in (("depthwise", "pointwise") if sep else ("conv",)):
+                out[f"{idx}.{name}.weight"] = _conv_w(tcs[name]["kernel"])
+            bn(f"encoder.encoder.{i}.conv.{4 * r + 1}", blk[f"bn{r}"], stats[f"bn{r}"])
+        if res:
+            out[f"encoder.encoder.{i}.residual.0.conv.weight"] = _conv_w(
+                blk["res_tcs"]["conv"]["kernel"])
+            bn(f"encoder.encoder.{i}.residual.1", blk["res_bn"], stats["res_bn"])
+    out["decoder.layers.0.weight"] = _conv_w(p["decoder"]["kernel"])
+    out["decoder.layers.0.bias"] = p["decoder"]["bias"]
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+_FLAX_TO_TORCH_GATES = ("i", "f", "g", "o")  # torch's gate order over flax's named denses
+
+
+def clair_state_from_flax(tree) -> dict:
+    """The JAX ClairModel's params as `models.clair.ClairModel`'s state
+    dict: flax's OptimizedLSTMCell keeps a bias-free input dense and a
+    hidden dense with bias a gate (`ii`, `hi`, ...); torch's LSTM stacks the
+    gates (i, f, g, o) in weight_ih/weight_hh, the bias in bias_hh."""
+    p, _ = _params(tree)
+    out = {}
+    for ours in ("lstm1", "lstm2"):
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            cell = p[ours][direction]
+            out[f"{ours}.weight_ih_l0{suffix}"] = np.concatenate(
+                [np.asarray(cell[f"i{g}"]["kernel"]).T for g in _FLAX_TO_TORCH_GATES])
+            out[f"{ours}.weight_hh_l0{suffix}"] = np.concatenate(
+                [np.asarray(cell[f"h{g}"]["kernel"]).T for g in _FLAX_TO_TORCH_GATES])
+            out[f"{ours}.bias_hh_l0{suffix}"] = np.concatenate(
+                [np.asarray(cell[f"h{g}"]["bias"]) for g in _FLAX_TO_TORCH_GATES])
+            out[f"{ours}.bias_ih_l0{suffix}"] = np.zeros_like(out[f"{ours}.bias_hh_l0{suffix}"])
+    out["l3_kernel"] = p["l3_kernel"]
+    out["l3_bias"] = p["l3_bias"]
+    for name in ("l4", *(f"{h}_{k}" for h in ("l5", "y") for k in range(1, 5))):
+        out[f"{name}.weight"] = np.asarray(p[name]["kernel"]).T
+        out[f"{name}.bias"] = p[name]["bias"]
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}

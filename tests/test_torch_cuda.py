@@ -20,6 +20,11 @@ mode's realign runs the same elementwise f32 ops on both devices, so its
 TSV must be equal byte for byte; the k-mer counter and the POA aligner
 are integer torch ops (no hand-written kernel), so their metrics,
 alignments and consensus strings must equal the goldens and the CPU's.
+grm, bonito and Clair are torch ops too, in float32 with TF32 off: GRM
+counts exact and the GRM within plink2's 2e-5 (goldens; card against CPU
+in every precision mode); bonito's golden within its atol 5e-4 at f32
+(TF32 would break it) and card against CPU within 5e-4; Clair's golden
+and card against CPU within 2e-5.
 """
 
 import json
@@ -832,3 +837,72 @@ def test_poa_goldens_on_card(cuda, fixtures_dir):
                 graphs[ci].add_alignment(aln, golden[ci]["seqs"][k])
         assert [g.generate_consensus() for g in graphs] == [c[atype]["consensus"]
                                                             for c in golden]
+
+
+@pytest.mark.cuda
+def test_grm_goldens_and_modes_on_card(cuda, fixtures_dir, tmp_path):
+    """The 25 plink2 goldens through the port on the card; a seeded cut in
+    every precision mode on the card and the CPU."""
+    import base64
+
+    from genomicsbench_palisade_tpu_torch.io.plink import read_pgen
+    from genomicsbench_palisade_tpu_torch.ops import grm as GR
+
+    for case in json.load(open(fixtures_dir / "grm_golden.json"))["cases"]:
+        files = [tmp_path / f"c.{e}" for e in ("pgen", "pvar", "psam")]
+        files[0].write_bytes(base64.b64decode(case["pgen"]))
+        files[1].write_text(case["pvar"])
+        files[2].write_text(case["psam"])
+        geno = read_pgen(*map(str, files))[0]
+        kept = GR.maf_filter(geno, case["maf"])
+        assert len(geno) - int(kept.sum()) == case["removed"]
+        grm, counts = GR.compute_grm(geno[kept], device=cuda)
+        tril = np.tril_indices(geno.shape[1])
+        np.testing.assert_array_equal(counts[tril], np.array(case["n_bin"], np.float32))
+        np.testing.assert_allclose(grm[tril], np.array(case["grm_bin"], np.float32),
+                                   atol=2e-5, rtol=2e-5)
+    cut = chip_smoke.synth_genotypes(np.random.default_rng(1), 1500, 96)
+    for precision in GR.PRECISIONS:
+        card = GR.compute_grm(cut, block=256, precision=precision, device=cuda)
+        cpu = GR.compute_grm(cut, block=256, precision=precision, device="cpu")
+        np.testing.assert_array_equal(card[1], cpu[1])
+        np.testing.assert_allclose(card[0], cpu[0], atol=2e-5, rtol=2e-5, err_msg=precision)
+
+
+@pytest.mark.cuda
+def test_bonito_golden_on_card_and_card_equal_cpu(cuda, fixtures_dir):
+    from genomicsbench_palisade_tpu_torch.models import bonito as BO
+
+    data = np.load(fixtures_dir / "bonito_golden.npz")
+    arrays = chip_smoke.bonito_weight_arrays(json.loads(str(data["names"])))
+    model = BO.load_reference_state(BO.BonitoModel(), arrays).to(cuda)
+    with torch.no_grad():
+        got = model(torch.from_numpy(data["input"]).to(cuda)).cpu().numpy()
+    np.testing.assert_allclose(got, data["logits"], atol=5e-4, rtol=1e-3)
+    x = torch.from_numpy(np.random.default_rng(2).normal(0, 1, (3, 1, 4000)).astype(np.float32))
+    cpu_model = BO.init_model(seed=1)
+    with torch.no_grad():
+        want = cpu_model(x)
+        got = cpu_model.to(cuda)(x.to(cuda)).cpu()
+    assert torch.allclose(got, want, atol=5e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_clair_golden_on_card_and_card_equal_cpu(cuda, fixtures_dir):
+    from genomicsbench_palisade_tpu_torch.models import clair as CL
+
+    data = np.load(fixtures_dir / "clair_golden.npz")
+    model = CL.ClairModel()
+    model.load_state_dict(CL.load_tf_variables(chip_smoke.clair_variables()))
+    model = model.eval().to(cuda)
+    with torch.no_grad():
+        got = model(torch.from_numpy(data["input"]).to(cuda))
+    for head, name in zip(got, ("gt21", "genotype", "indel1", "indel2")):
+        np.testing.assert_allclose(head.cpu().numpy(), data[name], atol=2e-5, rtol=1e-4)
+    x = torch.from_numpy(np.random.default_rng(3).poisson(3.0, (64, 33, 8, 4)).astype(np.float32))
+    cpu_model = CL.init_model(seed=2)
+    with torch.no_grad():
+        want = cpu_model(x)
+        got = cpu_model.to(cuda)(x.to(cuda))
+    for g, w in zip(got, want):
+        assert torch.allclose(g.cpu(), w, atol=2e-5, rtol=0)

@@ -244,7 +244,9 @@ assert "genomicsbench_palisade_tpu_torch.ops.abea_cuda" in names, names
 for n in ("cli.fmi", "ops.fmi", "ops.fmi_pipeline", "ops.occ_gather", "ops.oracle.fmi",
           "index.builder", "index.fmi_index", "tools.occ_gather_experiment",
           "ops.bsw_stripped", "ops.chain_micro", "tools.bsw_roofline", "tools.chain_roofline",
-          "tools.bsw_idle_timing", "tools.probe_lanes"):
+          "tools.bsw_idle_timing", "tools.probe_lanes", "io.plink", "ops.grm", "cli.grm",
+          "models.bonito", "models.clair", "io.flax_msgpack", "cli.basecall", "cli.call_var",
+          "utils.precision"):
     assert "genomicsbench_palisade_tpu_torch." + n in names, n
 print("ok", len(names))
 """
@@ -309,6 +311,33 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     for probe in (bsw_probe, chain_probe, bsw_idle):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             probe.main([])
+    # grm and the two NN drivers
+    from genomicsbench_palisade_tpu_torch.cli import basecall as cli_basecall
+    from genomicsbench_palisade_tpu_torch.cli import call_var as cli_call_var
+    from genomicsbench_palisade_tpu_torch.cli import grm as cli_grm
+    from genomicsbench_palisade_tpu_torch.io.plink import write_bed
+    from genomicsbench_palisade_tpu_torch.ops import grm as G
+
+    geno = np.array([[0, 1, 2, 3], [2, 2, 1, 0], [1, 0, 0, 1]], np.int8)
+    write_bed(str(tmp_path / "g"), geno)
+    np.savez(tmp_path / "sig.npz", r0=np.random.default_rng(0).normal(90, 5, 900).astype(np.float32))
+    np.savez(tmp_path / "x.npz", X=np.zeros((2, 33, 8, 4), np.float32))
+    entry_points = (
+        lambda: G.compute_grm(geno),
+        lambda: cli_grm.main(["--bfile", str(tmp_path / "g"), "--out", str(tmp_path / "o")]),
+        lambda: cli_basecall.main(["random", str(tmp_path / "sig.npz")]),
+        lambda: cli_call_var.main(["--input_fn", str(tmp_path / "x.npz"),
+                                   "--output_fn", str(tmp_path / "p.npz")]))
+    for call in entry_points:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "o.grm.bin").exists() and not (tmp_path / "p.npz").exists()
+    assert cli_grm.main(["--bfile", str(tmp_path / "g"), "--out", str(tmp_path / "o"),
+                         "--device", "cpu"]) == 0
+    assert (tmp_path / "o.grm.N.bin").stat().st_size == 4 * 10
+    assert cli_call_var.main(["--input_fn", str(tmp_path / "x.npz"), "--output_fn",
+                              str(tmp_path / "p.npz"), "--device", "cpu"]) == 0
+    assert np.load(tmp_path / "p.npz")["gt21"].shape == (2, 21)
     # told the CPU, they run
     prep = cli_fmi.prepare(str(gfa), str(fq), "cpu")
     smems = cli_fmi.run(prep.index, prep.enc, prep.rl, 1, 10)[0][0]
