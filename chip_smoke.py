@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's PairHMM, bsw, chain, abea (read-coordinate and
-eventalign modes), fmi, kmer, poa, grm, basecall and call_var paths and its
-occ-gather, bsw roofline and chain roofline probes on one GPU and hold their
-kernels to their plain PyTorch versions.
+eventalign modes), fmi (device and host engines), kmer, poa, grm, basecall,
+call_var, dbg, pileup and fmi_build paths and its occ-gather, bsw roofline
+and chain roofline probes on one GPU and hold their kernels to their plain
+PyTorch versions.
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, run in the order 1, 2, 11, 12, 3-10, 16-21, 13-15 (any failure
+Phases, run in the order 1, 2, 11, 12, 3-10, 16-24, 13-15 (any failure
 exits non-zero and prints no result):
   1. environment: Python, torch, CUDA, nvcc and the card (nvidia-smi);
   2. build csrc/phmm_forward.cu, csrc/bsw_extend.cu, csrc/chain_dp.cu,
      csrc/abea_fill.cu, csrc/abea_walk.cu, csrc/occ_gather.cu,
      csrc/bsw_stripped.cu and csrc/chain_micro.cu with nvcc, one process
      per source, started together (timed; ptxas register and spill lines);
+     then the native host library from native/*.cpp (`utils.native_build`,
+     one g++ a source; the wall time, cold or not, and the library's
+     name, which carries its hash);
   3. the f32 PairHMM kernel against the plain version on the card, bit for
      bit, at bench.py's shapes 8192x(250x302) and 4096x(250x473), with
      kernel and plain times (CUDA events), GCUPS and the bound; then both
@@ -130,8 +134,11 @@ exits non-zero and prints no result):
      rate on this table); the run once more under torch.profiler; the CLI's
      --print-output dump of the first 16 reads against the pooled results;
      batch 0 against the same batch through the port on the CPU; 8 reads
-     against the port's oracle over the same index (`oracle_view`); the 25
-     fmi goldens, indexes built and searched on the card;
+     against the port's oracle over the same index (`oracle_view`); the
+     host engine (`cli.fmi.run_host`, native/fmsearch.cpp on every core)
+     on the same index and reads: the 32-byte pack's time, three runs,
+     reads/s, its SMEMs equal to the device's in order; the 25 fmi
+     goldens, indexes built and searched on the card;
  13. the bsw roofline probe, cell bsw-roofline-8192: the probe tool
      (`tools.bsw_roofline.run`) on its workload (8,192 pairs of 128 x 256,
      rng seed 5, h0 30), launch counts reset just before and read just
@@ -246,6 +253,25 @@ exits non-zero and prints no result):
      write, tensors/s, TFLOP/s, peak device memory; the four heads' shapes
      and sums; clair_golden.npz on the card (2e-5); one batch on the card
      and the CPU (2e-5) and against the CLI's rows;
+ 22. the dbg main path, cell dbg-1m: a 1 Mbp random contig, a donor with a
+     variant every ~1 kb, 30x of 150-base donor reads (0.5% substitutions,
+     qualities 10-40) as a sorted BAM and .bai, all from --seed;
+     `cli.dbg` over the contig (1,334 windows on the native engine), load
+     / select / assemble, windows/s and Mb-ref/s; the first 32 windows
+     through ops.dbg's Python assemble_window, the same totals;
+ 23. the pileup main path, cell pileup-1m (REF_BASELINE.json's shape): one
+     1 Mbp contig, 20,000 reads of 300 bases, indexed; `cli.pileup` on
+     the fused native path in 100 kb chunks, its text to a file; count /
+     print, records/s, columns; the first 2 chunks through the numpy walk
+     (`native_events=False`), equal to the fused path and the CLI's text;
+ 24. the index builder, cell fmi-build-16m: a 16 Mbp FASTA of 4 contigs
+     with N runs of 10-1,000 bases; `cli.fmi_build --bwt2bit --bntseq`
+     (SA-IS on the host, the rest on the card): pack / SA / rest / write,
+     Mbp/s; the .bwt.2bit.64 and the npz against the card's doubling
+     build of the same codes, the .amb against the ambiguity runs.
+     No hand-written kernel on phases 22-24 (launch counts stay 0); each
+     host figure is printed beside the host CPU's model and cores and the
+     card's nvidia-smi line;
  15. the abea chain cost: per abea cell the ns and SM cycles (at the
      median clock of phases 13-14) a band of the fill and a step of the
      walk, and the chain floors; each kernel's device seconds over one
@@ -256,9 +282,10 @@ Every measurement is printed as it is taken.  Needs one CUDA card; without
 one it exits 1.  The bsw dataset (~3.8 GB), the chain dump (~236 MB), the
 abea signals (~118 MB, twice: phases 10 and 16), the fmi reads and
 index npz (~0.5 GB), the kmer reads (~255 MB), the poa windows, the grm
-.bed (~134 MB) and its outputs (~268 MB), the basecall signals (~118 MB)
-and the clair tensors (~554 MB) are written under build/ beside this
-script and deleted at the end.
+.bed (~134 MB) and its outputs (~268 MB), the basecall signals (~118 MB),
+the clair tensors (~554 MB), the dbg BAM (~20 MB), the pileup BAM and
+text (~1 MB, ~110 MB) and the fmi-build FASTA and index (~0.5 GB) are
+written under build/ beside this script and deleted at the end.
 """
 
 from __future__ import annotations
@@ -270,6 +297,7 @@ import gc
 import io
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -387,6 +415,19 @@ POA_WINDOWS, POA_SEQS, POA_LEN = 64, 10, 750
 POA_PARAMS = (2, -4, -6, -2, -25, -1)
 POA_CPU_WINDOWS = 2  # windows held card against CPU round by round
 POA_ORACLE = (4, 6, 200)  # windows x sequences x bases against the port's oracle
+# dbg-1m: a 1 Mbp random contig and a donor haplotype with an SNV or a 1-5
+# base indel every ~1 kb, 30x of 150-base donor reads with 0.5%
+# substitutions and qualities 10-40, through cli.dbg's native windows
+DBG_BASES = 1_000_000
+DBG_COVERAGE, DBG_READ_LEN, DBG_SUB = 30, 150, 0.005
+DBG_VARIANT_EVERY = 1000
+DBG_PLAIN_WINDOWS = 32  # windows held to ops.dbg.assemble_window (Python)
+# pileup-1m: REF_BASELINE.json's pileup shape (tools/ref_baseline.py:535-552's
+# generator): one 1 Mbp contig, 20,000 reads of 300 bases, 100 kb chunks
+PILEUP_BASES, PILEUP_READS, PILEUP_READ_LEN = 1_000_000, 20_000, 300
+PILEUP_PLAIN_CHUNKS = 2  # chunks held to calculate_pileup's numpy walk
+# fmi-build-16m: a 16 Mbp FASTA of 4 contigs with N runs of 10-1,000 bases
+FMI_BUILD_MBP, FMI_BUILD_CONTIGS, FMI_BUILD_N_RUNS = 16, 4, 8
 # operations of csrc/abea_fill.cu a valid cell: f32 6 for the emission
 # (two subtractions, the division, two multiplications, the addition) and 4
 # compares; f64 4 conversions in, 5 additions, 3 conversions out
@@ -1069,6 +1110,100 @@ def write_eventalign_dataset(tmp: Path, lengths, rng, bam) -> dict:
             "bam_mb": (tmp / "reads.bam").stat().st_size / 1e6}
 
 
+NT16 = np.array([1, 2, 4, 8], np.uint8)  # A C G T as BAM 4-bit codes
+
+
+def write_dbg_dataset(tmp: Path, n_bases: int, rng, bam, coverage=DBG_COVERAGE,
+                      read_len=DBG_READ_LEN) -> dict:
+    """dbg-1m's inputs under `tmp`: chr1, `n_bases` uniform random bases
+    (chr1.fa); a donor haplotype with a variant near every
+    DBG_VARIANT_EVERY bases (half SNVs, a quarter insertions and a quarter
+    deletions of 1-5 bases); `coverage`x of `read_len`-base donor reads with
+    DBG_SUB substitutions and qualities 10-40 (40 less an exponential of
+    mean 4: most windows of 16 pass minQual 20), every 64th flagged QC-fail.
+    A read's position is its donor start less the indels before it, its
+    cigar one M; reads.bam sorted, with its .bai (the port's io.bam).
+    Returns counts."""
+    ref = rng.integers(0, 4, n_bases).astype(np.uint8)
+    sites = np.arange(DBG_VARIANT_EVERY // 2, n_bases - DBG_VARIANT_EVERY // 2, DBG_VARIANT_EVERY)
+    sites = sites + rng.integers(-DBG_VARIANT_EVERY // 5, DBG_VARIANT_EVERY // 5, len(sites))
+    kinds = rng.choice(3, len(sites), p=[0.5, 0.25, 0.25])  # SNV, insertion, deletion
+    lens = rng.integers(1, 6, len(sites))
+    # donor_at[v]: the donor length after variant v; shifts[v]: the net
+    # indel length up to it
+    pieces, cur, dlen, shift, donor_at, shifts = [], 0, 0, 0, [], []
+    for site, kind, ln in zip(sites.tolist(), kinds.tolist(), lens.tolist()):
+        pieces.append(ref[cur:site])
+        dlen += site - cur
+        if kind == 0:
+            pieces.append(np.array([(ref[site] + rng.integers(1, 4)) % 4], np.uint8))
+            cur, dlen = site + 1, dlen + 1
+        elif kind == 1:
+            pieces += [ref[site:site + 1], rng.integers(0, 4, ln).astype(np.uint8)]
+            cur, dlen, shift = site + 1, dlen + 1 + ln, shift + ln
+        else:
+            cur, shift = site + ln, shift - ln
+        donor_at.append(dlen)
+        shifts.append(shift)
+    pieces.append(ref[cur:])
+    donor = np.concatenate(pieces)
+    n_reads = coverage * len(donor) // read_len
+    starts = np.sort(rng.integers(0, len(donor) - read_len, n_reads))
+    seqs = donor[starts[:, None] + np.arange(read_len)]
+    sub = rng.random(seqs.shape) < DBG_SUB
+    seqs[sub] = (seqs[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    quals = np.clip(40 - rng.exponential(4.0, seqs.shape), 10, 40).astype(np.uint8)
+    # donor -> reference coordinates: less the net indel length before the start
+    k = np.searchsorted(np.asarray(donor_at), starts, side="right")
+    pos = starts - np.concatenate([[0], shifts])[k]
+    order = np.argsort(pos, kind="stable")
+    records = [bam.BamRecord(f"r{i}", bam.FQCFAIL if i % 64 == 63 else 0, 0, int(pos[j]), 60,
+                             [("M", read_len)], NT16[seqs[j]], quals[j], {})
+               for i, j in enumerate(order.tolist())]
+    bam.write_bam(str(tmp / "reads.bam"), [("chr1", n_bases)], records)
+    bam.build_bai(str(tmp / "reads.bam"))
+    write_fasta(tmp / "chr1.fa", [ref], ["chr1"])
+    return {"bases": n_bases, "donor_bases": len(donor), "variants": len(sites),
+            "reads": n_reads, "bam_mb": (tmp / "reads.bam").stat().st_size / 1e6}
+
+
+def write_pileup_bam(path: Path, n_bases: int, n_reads: int, read_len: int, rng, bam) -> dict:
+    """pileup-1m's BAM, tools/ref_baseline.py:535-552's recipe from `rng`:
+    tig1 of `n_bases`, `n_reads` reads of `read_len` random bases at sorted
+    uniform positions, half reverse, MAPQ 50, one M, qualities 10-39;
+    indexed by the port's io.bam."""
+    positions = np.sort(rng.integers(0, n_bases - read_len, n_reads))
+    records = []
+    for i, p in enumerate(positions.tolist()):
+        seq = rng.integers(0, 4, read_len)
+        records.append(bam.BamRecord(f"r{i}", bam.FREVERSE if rng.random() < 0.5 else 0, 0, p,
+                                     50, [("M", read_len)], NT16[seq],
+                                     rng.integers(10, 40, read_len).astype(np.uint8), {}))
+    bam.write_bam(str(path), [("tig1", n_bases)], records)
+    bam.build_bai(str(path))
+    return {"bases": n_bases, "reads": n_reads, "bam_mb": path.stat().st_size / 1e6}
+
+
+def write_genome_fasta(path: Path, n_bases: int, n_contigs: int, n_runs: int, rng) -> dict:
+    """fmi-build-16m's FASTA: `n_contigs` contigs `chr<i> synthetic contig
+    <i>` (a comment for .ann) of n_bases / n_contigs uniform random bases,
+    80 a line, each with `n_runs` runs of 10-1,000 Ns and one IUPAC R at a
+    random place."""
+    acgt = np.frombuffer(b"ACGTNR", np.uint8)
+    per = n_bases // n_contigs
+    holes = 0
+    with open(path, "wb") as f:
+        for c in range(n_contigs):
+            seq = acgt[rng.integers(0, 4, per)]
+            for st in rng.integers(0, per - 1000, n_runs).tolist():
+                seq[st : st + int(rng.integers(10, 1001))] = acgt[4]
+            seq[int(rng.integers(0, per))] = acgt[5]
+            holes += n_runs + 1
+            f.write(f">chr{c} synthetic contig {c}\n".encode())
+            f.write(b"\n".join(seq[i : i + 80].tobytes() for i in range(0, per, 80)) + b"\n")
+    return {"bases": per * n_contigs, "contigs": n_contigs, "ambiguous_runs_at_most": holes}
+
+
 def synth_reference_codes(mbp: int, rng) -> np.ndarray:
     """tools/genome_scale_fmi.py:synth_reference's bases, as codes 0-3
     (uint8): `mbp` million uniform bases drawn 4 Mi at a time from `rng`
@@ -1457,7 +1592,14 @@ class Port:
         from genomicsbench_palisade_tpu_torch.cli import basecall as cli_basecall
         from genomicsbench_palisade_tpu_torch.cli import call_var as cli_call_var
         from genomicsbench_palisade_tpu_torch.cli import grm as cli_grm
+        from genomicsbench_palisade_tpu_torch.cli import dbg as cli_dbg
+        from genomicsbench_palisade_tpu_torch.cli import pileup as cli_pileup
+        from genomicsbench_palisade_tpu_torch.cli import fmi_build as cli_fmi_build
+        from genomicsbench_palisade_tpu_torch.io import native
         from genomicsbench_palisade_tpu_torch.io import plink
+        from genomicsbench_palisade_tpu_torch.ops import dbg as D
+        from genomicsbench_palisade_tpu_torch.ops import pileup as PU
+        from genomicsbench_palisade_tpu_torch.utils import native_build
         from genomicsbench_palisade_tpu_torch.models import bonito, clair
         from genomicsbench_palisade_tpu_torch.ops import grm as G
         from genomicsbench_palisade_tpu_torch.cli import phmm as cli
@@ -1522,7 +1664,9 @@ class Port:
                           cli_kmer=cli_kmer, K=K, cli_poa=cli_poa, POA=POA,
                           poa_oracle=poa_oracle, load_flye_cfg=load_flye_cfg,
                           cli_grm=cli_grm, G=G, plink=plink, cli_basecall=cli_basecall,
-                          cli_call_var=cli_call_var, bonito=bonito, clair=clair)
+                          cli_call_var=cli_call_var, bonito=bonito, clair=clair,
+                          cli_dbg=cli_dbg, cli_pileup=cli_pileup, cli_fmi_build=cli_fmi_build,
+                          native=native, D=D, PU=PU, native_build=native_build)
         self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend, chain_cuda.chain_dp,
                         *abea_cuda.KERNELS, *occ_gather.KERNELS, *bsw_stripped.KERNELS,
                         *chain_micro.KERNELS]
@@ -3290,6 +3434,170 @@ def clair_phase(torch, port: Port, rec: Record, seed: int):
         fail(f"clair: card and CPU disagree ({err}, {cli_err})")
 
 
+def host_line(port: Port, rec: Record) -> dict:
+    """The host beside a host phase's figures: the CPU's model name and
+    cores, and the card's nvidia-smi line."""
+    return {"host_cpu": port.native_build.cpu_model(), "host_cores": os.cpu_count(),
+            "card": rec.card}
+
+
+def dbg_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 22, dbg-1m: cli.dbg over the whole contig on the native window
+    engine, its first DBG_PLAIN_WINDOWS windows against ops.dbg's Python
+    assemble_window."""
+    cli = port.cli_dbg
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        made = write_dbg_dataset(tmp, DBG_BASES, np.random.default_rng(seed + 22), port.bam)
+        log("dbg-1m dataset " + json.dumps({**made, "write_s": time.perf_counter() - t0}))
+
+        port.reset_launches()
+        stats, out = {}, io.StringIO()
+        region = f"chr1:1-{DBG_BASES}"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([str(tmp / "reads.bam"), region, str(tmp / "chr1.fa")], stats=stats)
+        total = time.perf_counter() - t0
+        launches = port.launches()
+        lines = out.getvalue().splitlines()
+        windows = len(port.D.window_batches(0, DBG_BASES))
+        e2e = {**stats, "total_s": total, "reads": made["reads"],
+               "windows_per_s": windows / total, "mb_ref_per_s": windows * 1500 / total / 1e6,
+               "reads_per_s": made["reads"] / total, "kernel_launches": sum(launches.values()),
+               "lines": lines, **host_line(port, rec)}
+        log("dbg-1m end to end " + json.dumps(e2e))
+        if (rc != 0 or len(lines) != 2 or lines[0] != f"Found {windows} batches."
+                or stats["windows"] != windows or any(launches.values())):
+            fail(f"dbg-1m: rc {rc}, {e2e}")
+
+        # the plain check: the first windows through the Python assembler
+        t0 = time.perf_counter()
+        ref = (tmp / "chr1.fa").read_text().split("\n")[1]
+        last = port.D.window_batches(0, DBG_BASES)[DBG_PLAIN_WINDOWS - 1]
+        reads = cli.region_reads(str(tmp / "reads.bam"), "chr1", 0, last[1])
+        want = cli.assemble(ref, reads, 0, DBG_BASES, engine="python",
+                            max_windows=DBG_PLAIN_WINDOWS)
+        got = cli.assemble(ref, reads, 0, DBG_BASES, max_windows=DBG_PLAIN_WINDOWS)
+        log(f"dbg-1m: the first {DBG_PLAIN_WINDOWS} windows, native (windows, nodes, bubbles) "
+            f"{got}, Python {want} ({time.perf_counter() - t0:.1f} s)")
+        if got != want or not want[2]:
+            fail(f"dbg-1m: the native windows {got} differ from the Python ones {want}")
+
+
+def pileup_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 23, pileup-1m: cli.pileup over the indexed contig (the fused
+    native path, 100 kb chunks, its stdout to a file), the first
+    PILEUP_PLAIN_CHUNKS chunks against calculate_pileup's numpy walk."""
+    cli, PU, bam = port.cli_pileup, port.PU, port.bam
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        made = write_pileup_bam(tmp / "reads.bam", PILEUP_BASES, PILEUP_READS, PILEUP_READ_LEN,
+                                np.random.default_rng(seed + 23), bam)
+        log("pileup-1m dataset " + json.dumps({**made, "write_s": time.perf_counter() - t0}))
+
+        port.reset_launches()
+        stats = {}
+        region = f"tig1:1-{PILEUP_BASES}"
+        t0 = time.perf_counter()
+        with open(tmp / "out.txt", "w") as f, contextlib.redirect_stdout(f):
+            rc = cli.main([str(tmp / "reads.bam"), region], stats=stats)
+        total = time.perf_counter() - t0
+        launches = port.launches()
+        text = (tmp / "out.txt").read_text()
+        header = text.split("\n", 1)[0] + "\n"
+        bodies = text.split(header)[1:]
+        n_cols = sum(b.count("\n") for b in bodies)
+        e2e = {**stats, "print_s": total - stats["fetch_s"] - stats["count_s"], "total_s": total,
+               "records_per_s": PILEUP_READS / total, "columns": n_cols,
+               "chunks": len(bodies), "output_mb": len(text) / 1e6,
+               "kernel_launches": sum(launches.values()), **host_line(port, rec)}
+        log("pileup-1m end to end " + json.dumps(e2e))
+        chunks = -(-PILEUP_BASES // cli.CHUNK_LEN)
+        if rc != 0 or not stats["fused"] or len(bodies) != chunks or any(launches.values()):
+            fail(f"pileup-1m: rc {rc}, {e2e}")
+
+        # the plain check: the numpy walk on the first chunks (the CLI's
+        # chunk bounds, one base low) equals the fused path and the CLI's text
+        t0 = time.perf_counter()
+        bai = bam.read_bai(str(tmp / "reads.bam") + ".bai")
+        for c in range(PILEUP_PLAIN_CHUNKS):
+            cs, ce = max(c * cli.CHUNK_LEN - 1, 0), min((c + 1) * cli.CHUNK_LEN, PILEUP_BASES)
+            _refs, recs = bam.read_bam_region(str(tmp / "reads.bam"), "tig1", cs, ce, index=bai)
+            plain = PU.calculate_pileup(recs, 0, cs, ce, native_events=False)
+            fused = PU.calculate_pileup_region(str(tmp / "reads.bam"), "tig1", cs, ce, index=bai)
+            printed = io.StringIO()
+            PU.print_pileup(plain, out=printed)
+            same = (plain["n_cols"] == fused["n_cols"] > 0
+                    and all(np.array_equal(np.asarray(plain[k], np.int64),
+                                           np.asarray(fused[k], np.int64))
+                            for k in ("major", "minor", "matrix"))
+                    and printed.getvalue() == header + bodies[c])
+            if not same:
+                fail(f"pileup-1m chunk {c}: the numpy walk differs from the fused path or the "
+                     f"CLI's text")
+        log(f"pileup-1m: the first {PILEUP_PLAIN_CHUNKS} chunks' numpy walk equals the fused "
+            f"path and the CLI's text ({time.perf_counter() - t0:.1f} s)")
+
+
+def fmi_build_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 24, fmi-build-16m: cli.fmi_build --bwt2bit --bntseq (SA-IS on
+    the host, the rest on the card); its arrays against the card's doubling
+    build of the same codes."""
+    cli, IB, FI = port.cli_fmi_build, port.fmi_builder, port.fmi_index
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        made = write_genome_fasta(tmp / "genome.fa", FMI_BUILD_MBP * 1_000_000,
+                                  FMI_BUILD_CONTIGS, FMI_BUILD_N_RUNS,
+                                  np.random.default_rng(seed + 24))
+        log("fmi-build-16m dataset " + json.dumps({**made, "write_s": time.perf_counter() - t0}))
+
+        port.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats, out = {}, io.StringIO()
+        prefix = str(tmp / "idx")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([str(tmp / "genome.fa"), "-p", prefix, "--bwt2bit", "--bntseq"],
+                          stats=stats)
+        total = time.perf_counter() - t0
+        launches = port.launches()
+        lines = out.getvalue().splitlines()
+        sizes = {s: Path(prefix + s).stat().st_size for s in
+                 (".npz", ".bwt.2bit.64", ".ann", ".amb", ".pac")}
+        e2e = {**stats, "total_s": total, "mbp_per_s": FMI_BUILD_MBP / total,
+               "text_chars": 2 * made["bases"] + 1, "file_bytes": sizes,
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "kernel_launches": sum(launches.values()), "lines": lines, **host_line(port, rec)}
+        log("fmi-build-16m end to end " + json.dumps(e2e))
+        if (rc != 0 or any(launches.values())
+                or f"* ref_seq_len: {2 * made['bases'] + 1}" not in lines):
+            fail(f"fmi-build-16m: rc {rc}, {e2e}")
+
+        # the check: the written index against the card's doubling build
+        t0 = time.perf_counter()
+        codes, _names, _lengths, holes = IB.pack_fasta(str(tmp / "genome.fa"), with_holes=True)
+        want = IB.build_arrays(codes, device=DEVICE)
+        got = FI.load_bwt2bit64(prefix + ".bwt.2bit.64", load_sa=True)
+        npz = FI.load_npz(prefix + ".npz")
+        same = all((a.ref_seq_len, a.sentinel_index) == (want.ref_seq_len, want.sentinel_index)
+                   and all(np.array_equal(getattr(a, k), getattr(want, k))
+                           for k in ("count", "cp_occ", "sa_ms_byte", "sa_ls_word"))
+                   for a in (got, npz))
+        amb = (tmp / "idx.amb").read_text().splitlines()
+        log(f"fmi-build-16m: the .bwt.2bit.64 and the npz equal the card's doubling build "
+            f"{same}; {len(holes)} ambiguity runs in .amb ({amb[0]}) "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not same or int(amb[0].split()[2]) != len(holes) or not holes:
+            fail("fmi-build-16m: the written index differs from the card's doubling build")
+
+
 def occ_bound(rows_needed: int, n_idx: int, row_bytes: int):
     """Least time (ms) for a gather fold: the distinct rows (or tiles) its
     indices pick, each read once (row_bytes each), the indices (4 bytes
@@ -3547,6 +3855,28 @@ def fmi_phase(torch, port: Port, rec: Record, seed: int):
         fail("fmi results differ from the oracle")
     log(f"fmi oracle sample: {FMI_ORACLE_READS}/{FMI_ORACLE_READS} reads exact, {len(want)} "
         f"SMEMs ({time.perf_counter() - t0:.1f} s)")
+
+    # the host engine (--engine host) on the same index and reads: the packed
+    # occ rows and a warm call of one read (index loading), three runs
+    t0 = time.perf_counter()
+    port.native.hostpack32(didx)
+    pack_s = time.perf_counter() - t0
+    port.native.fmi_search_native(didx, prep.enc[:1], prep.rl[:1], min_seed_len=FMI_MIN_SEED)
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = cli_fmi.run_host(didx, prep.enc, prep.rl, FMI_MIN_SEED)
+        host_s.append(time.perf_counter() - t0)
+    same = (smem_tuples(host[0]) == [t for r in results for t in smem_tuples(r[0])]
+            and list(host[1:]) == n_phase)
+    med_s = sorted(host_s)[1]
+    log("fmi-256m-2048 host engine " + json.dumps(
+        {"pack32_s": pack_s, "pack32_mb": didx._host_pack32.nbytes / 1e6, "run_s_all": host_s,
+         "run_s_median": med_s, "reads_per_s_search": FMI_READS / med_s,
+         "device_reads_per_s_search": e2e["reads_per_s_search"], "smems": list(host[1:]),
+         "equal_to_device": same, "threads": os.cpu_count(), **host_line(port, rec)}))
+    if not same:
+        fail("fmi host engine: its SMEMs differ from the device pipeline's")
 
     # the reference goldens: the index built and searched on the card
     cases = json.loads((HERE / "tests" / "fixtures" / "fmi_golden.json").read_text())["cases"]
@@ -3848,6 +4178,15 @@ def main(argv=None) -> int:
             if "registers" in ln or "spill" in ln:
                 log(f"  ptxas {lib_path.name}: {ln.strip()}")
 
+    # the native host library (native/*.cpp, g++, one process a source)
+    cold = not port.native_build.library_path().exists()
+    t0 = time.perf_counter()
+    native_lib = port.native_build.build()
+    log("native build " + json.dumps(
+        {"library": native_lib.name, "build_s": time.perf_counter() - t0, "cold": cold,
+         "sources": len(port.native_build.SRCS), "cxx": port.native_build.compiler(),
+         "host_cpu": port.native_build.cpu_model(), "host_cores": os.cpu_count()}))
+
     rec = Record(port.launches())
     rec.card = smi
     # the fmi engine is launch-bound, and every launch after a torch.profiler
@@ -3864,6 +4203,9 @@ def main(argv=None) -> int:
     grm_phase(torch, port, rec, args.seed)
     basecall_phase(torch, port, rec, args.seed)
     clair_phase(torch, port, rec, args.seed)
+    dbg_phase(torch, port, rec, args.seed)
+    pileup_phase(torch, port, rec, args.seed)
+    fmi_build_phase(torch, port, rec, args.seed)
     bsw_roofline_phase(torch, port, rec, args.seed)
     chain_roofline_phase(torch, port, rec)
     abea_chain_lines(rec)

@@ -17,7 +17,12 @@ the host in `ops.oracle.poa`; CLI `cli.poa`), plink2's GRM (`io.plink`,
 `ops.grm`: the blocked ZᵀZ as float32 torch products; CLI `cli.grm`) and
 the two NN models as torch modules (`models.bonito`, CLI `cli.basecall`;
 `models.clair`, CLI `cli.call_var`; flax weights through
-`io.flax_msgpack`).
+`io.flax_msgpack`), and the host-only drivers over the port's own build of
+native/*.cpp (`utils.native_build`, bound by `io.native`): Platypus's
+windowed de Bruijn assembler (`ops.dbg`, CLI `cli.dbg`), medaka's pileup
+counts (`ops.pileup`, CLI `cli.pileup`), bwa-mem2's index builder with the
+suffix array by SA-IS (`index.builder`, CLI `cli.fmi_build`) and the fmi
+CLI's host engine (`cli.fmi --engine host`); `utils.timing.KernelTimer`.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU and no explicit device they raise.  Kernels are built at first use,

@@ -1,7 +1,8 @@
 """FM-index loading and the port's occ layout.
 
-Port of genomicsbench_palisade_tpu/index/fmi_index.py:32-181 (the sharded
-files, `:184-287`, are not ported yet).  Reference index format
+Port of genomicsbench_palisade_tpu/index/fmi_index.py:32-181 and the
+suffix-array lookups :289-357 (the sharded files, `:184-287`, are not
+ported yet: ROADMAP queue 1 item 12).  Reference index format
 `.bwt.2bit.64` (tools/bwa-mem2/src/FMI_search.cpp:176-356 build_fm_index,
 :469-588 load_index):
     int64   ref_seq_len              (= 2*L + 1, fwd + revcomp + sentinel)
@@ -115,10 +116,13 @@ def save_npz(idx: DeviceFmIndex, path: str):
 
 
 def load_npz(path: str) -> DeviceFmIndex:
+    """The index of an npz (either package's).  The index remembers the
+    path, so the host engine finds and writes its packed-occ-row sidecars
+    beside it (`io.native.fmi_search_native`)."""
     z = np.load(path, allow_pickle=True)
     sa_ms = z["sa_ms_byte"] if "sa_ms_byte" in z.files and z["sa_ms_byte"].size else None
     sa_ls = z["sa_ls_word"] if "sa_ls_word" in z.files and z["sa_ls_word"].size else None
-    return DeviceFmIndex(
+    idx = DeviceFmIndex(
         ref_seq_len=int(z["ref_seq_len"]),
         count=z["count"].astype(np.int64),
         sentinel_index=int(z["sentinel_index"]),
@@ -130,3 +134,73 @@ def load_npz(path: str) -> DeviceFmIndex:
         # legacy archives lack the flag: infer from the SA sample count
         else (sa_ms is not None and len(sa_ms) < int(z["ref_seq_len"])),
     )
+    idx._npz_path = path
+    return idx
+
+
+# ---------------------------------------------------------------------------
+# suffix-array entry lookup (FMI_search.cpp:1568-1625 get_sa_entry*)
+# ---------------------------------------------------------------------------
+
+_U64 = (1 << 64) - 1
+
+
+def _word(idx: DeviceFmIndex, blk: int, c: int) -> int:
+    """Base c's one-hot word of block blk as an unsigned Python int."""
+    return int(idx.cp_occ[blk, 4 + c]) & _U64
+
+
+def host_occ(idx: DeviceFmIndex, pp: int, c: int) -> int:
+    """# of char c in bwt[0:pp] (GET_OCC): the count before the block plus
+    the ones among the word's first pp & 63 positions (its top bits)."""
+    blk, y = int(pp) >> CP_SHIFT, int(pp) & CP_MASK
+    base = int(idx.cp_occ[blk, c])
+    return base + (_word(idx, blk, c) >> (64 - y)).bit_count() if y else base
+
+
+def host_bwt_char(idx: DeviceFmIndex, pos: int) -> int:
+    """BWT character at SA row pos (4 = sentinel)."""
+    blk, bit = int(pos) >> CP_SHIFT, 1 << (63 - (int(pos) & CP_MASK))
+    for c in range(4):
+        if _word(idx, blk, c) & bit:
+            return c
+    return 4
+
+
+def get_sa_entry(idx: DeviceFmIndex, pos: int) -> int:
+    """Reference coordinate of SA row pos (FMI_search.cpp:1568-1578; the
+    compressed variant walks LF to a sampled row, :1621-1625 semantics)."""
+    if idx.sa_ms_byte is None:
+        raise ValueError("index carries no SA arrays")
+    if not idx.sa_compression:
+        return (int(idx.sa_ms_byte[pos]) << 32) + int(idx.sa_ls_word[pos])
+    offset = 0
+    while pos & 7:
+        if pos == idx.sentinel_index:
+            return offset  # SA[sentinel row] = 0
+        c = host_bwt_char(idx, pos)
+        pos = int(idx.count[c]) + host_occ(idx, pos, c)  # LF step
+        offset += 1
+    return (int(idx.sa_ms_byte[pos >> 3]) << 32) + int(idx.sa_ls_word[pos >> 3]) + offset
+
+
+def get_sa_entries(idx: DeviceFmIndex, positions) -> np.ndarray:
+    """Bulk coordinate lookup (get_sa_entries, FMI_search.cpp:1581-1594)."""
+    positions = np.asarray(positions, np.int64)
+    if not idx.sa_compression:
+        return ((idx.sa_ms_byte[positions].astype(np.int64) << 32)
+                + idx.sa_ls_word[positions].astype(np.int64))
+    return np.array([get_sa_entry(idx, int(p)) for p in positions], np.int64)
+
+
+def get_sa_entries_smems(idx: DeviceFmIndex, smem_k, smem_s, max_occ: int):
+    """Per-SMEM subsampled coordinates (FMI_search.cpp:1596-1619): for each
+    interval [k, k+s) take at most max_occ entries with stride s//max_occ.
+    Returns (coords int64[total], counts int32[num_smems])."""
+    coords, counts = [], []
+    for k, s in zip(np.asarray(smem_k, np.int64), np.asarray(smem_s, np.int64)):
+        step = int(s // max_occ) if s > max_occ else 1
+        rows = range(int(k), int(k + s), step)[:max_occ]
+        coords.extend(get_sa_entry(idx, j) for j in rows)
+        counts.append(len(rows))
+    return np.asarray(coords, np.int64), np.asarray(counts, np.int32)

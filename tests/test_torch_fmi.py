@@ -29,6 +29,7 @@ from genomicsbench_palisade_tpu_torch.cli import fmi as cli
 from genomicsbench_palisade_tpu_torch.convert import fmi_index_from_numpy
 from genomicsbench_palisade_tpu_torch.index import builder as IB
 from genomicsbench_palisade_tpu_torch.index import fmi_index as FI
+from genomicsbench_palisade_tpu_torch.io import native
 from genomicsbench_palisade_tpu_torch.io.fastq import encode_reads, read_all
 from genomicsbench_palisade_tpu_torch.ops import fmi as F
 from genomicsbench_palisade_tpu_torch.ops import fmi_pipeline as FP
@@ -396,10 +397,11 @@ def test_cli_engine_tpu_matches_jax_cli(tmp_path, capsys, monkeypatch):
 
 
 def test_cli_refuses_host_engine_and_copies_imbalance(tmp_path, capsys):
+    """The name is the one this test had while the port refused `--engine
+    host`; since the host engine is ported (test_cli_host_engine_* below),
+    it holds the copied load-imbalance metric and the CLI's --limit and
+    --repeat lines."""
     fa, npz, fq = _cli_inputs(tmp_path, n_reads=4)
-    with pytest.raises(SystemExit):
-        cli.main([str(npz), str(fq), "--engine", "host", "--device", "cpu"])
-    assert "ROADMAP queue 1 item 14" in capsys.readouterr().err
     for work in ([3, 1, 4, 1, 5], [0, 0], [7]):
         for n in (1, 2, 3):
             assert cli.shard_work_imbalance(work, n) == j_imbalance(work, n)
@@ -407,6 +409,105 @@ def test_cli_refuses_host_engine_and_copies_imbalance(tmp_path, capsys):
                      "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "numReads = 3," in out and "repeat Consumed: " in out and out.count("\nbatch_id: ") == 2
+
+
+def _dump(text):
+    return [ln for ln in text.splitlines() if ln.startswith("[") or ln.endswith(":")]
+
+
+@pytest.mark.parametrize("index_kind", ["npz", "fasta", "bwt2bit"])
+def test_cli_host_engine_matches_device_and_jax(tmp_path, capsys, monkeypatch, index_kind):
+    """--engine host prints the device engine's dump and totals (the port's
+    on the CPU and the JAX CLI's --engine tpu); its one num_smem line is
+    the sums of the device's per-batch lines; auto is the device engine."""
+    fa, npz, fq = _cli_inputs(tmp_path)
+    if index_kind == "bwt2bit":
+        JB.write_bwt2bit64(JB.build_arrays(JB.pack_fasta(str(fa))[0]), str(tmp_path / "g.bwt.2bit.64"))
+    index = str({"npz": npz, "fasta": fa, "bwt2bit": tmp_path / "g.bwt.2bit.64"}[index_kind])
+    args = [index, str(fq), "16", "18", "--print-output"]
+    assert cli.main(args + ["--engine", "host", "--repeat", "2"]) == 0
+    host = capsys.readouterr().out
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    dev = capsys.readouterr().out
+    monkeypatch.setenv("GENOMICS_TPU_CACHE_DIR", str(tmp_path / "xla"))
+    monkeypatch.setattr(jax, "local_devices", lambda *a, **k: jax.devices()[:1])
+    assert jcli.main(args + ["--engine", "tpu"]) == 0
+    jdev = capsys.readouterr().out
+    assert _dump(host) == _dump(dev) == _dump(jdev) and len(_dump(host)) > 48
+    tail = lambda text: [ln for ln in text.splitlines() if ln.startswith(
+        ("batch_id", "totalSmems", "load imbalance", "numReads"))]
+    assert tail(host) == tail(dev) == tail(jdev)
+    counts = lambda text: [[int(v.strip(",")) for v in ln.split()[1::2]]
+                           for ln in text.splitlines() if ln.startswith("num_smem1")]
+    assert counts(host) == [list(np.sum(counts(dev), axis=0))] and len(counts(dev)) == 3
+    assert host.count("repeat Consumed: ") == 1 and "Consumed: " in host
+
+
+@pytest.mark.parametrize("pack_mode", [32, 64])
+def test_host_engine_equals_device_pipeline_and_oracle(setup, monkeypatch, pack_mode):
+    """run_host == one device batch == the oracle, slot for slot, on the
+    repetitive genome whose reads reach the reseed phase; the serial and
+    the interleaved engines (GT_FMI_ENGINE) give the same SMEMs in the
+    same order."""
+    didx = FI.from_oracle_index(setup["oidx"])
+    monkeypatch.setenv("GT_FMI_PACK", str(pack_mode))
+    want, *wn = FP.fmi_pipeline_batch(setup["index"], setup["enc"], setup["rl"])
+    outs = {}
+    for engine in ("serial", "interleaved"):
+        monkeypatch.setenv("GT_FMI_ENGINE", engine)
+        outs[engine] = native.fmi_search_native(didx, setup["enc"], setup["rl"], min_seed_len=19)
+        got, *gn = cli.run_host(didx, setup["enc"], setup["rl"], 19, threads=2)
+        assert _tuples(got) == _tuples(want) and gn == wn[:3] and gn[1] > 0
+    assert outs["serial"][1:] == outs["interleaved"][1:]
+    assert all(np.array_equal(outs["serial"][0][k], outs["interleaved"][0][k]) for k in KEYS)
+    # the oracle on the same reads (min_intv 1, the oracle's default)
+    oracle, *on = O.fmi_pipeline(setup["oidx"], [O.encode_read(r) for r in setup["reads"]])
+    assert on == wn[:3] and _tuples(got) == [tuple(w[k] for k in KEYS) for w in oracle]
+
+
+@pytest.mark.parametrize("pack_mode", [64, 32])
+def test_host_pack_sidecar_roundtrip(tmp_path, pack_mode):
+    """load_npz remembers its path, so the host engine writes its packed
+    occ rows as <npz>.hostpack{,32}.npy and a second load maps them."""
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 4, 4000).astype(np.int8)
+    p = str(tmp_path / "idx.npz")
+    FI.save_npz(IB.build_arrays(codes, device="cpu", sa_engine="sais"), p)
+    starts = rng.integers(0, len(codes) - 70, 40)
+    enc = np.stack([codes[s : s + 70] for s in starts]).astype(np.int8)
+    rl = np.full(40, 70, np.int32)
+    d1 = FI.load_npz(p)
+    out1 = native.fmi_search_native(d1, enc, rl, min_seed_len=12, pack_mode=pack_mode)
+    suffix = ".hostpack.npy" if pack_mode == 64 else ".hostpack32.npy"
+    assert (tmp_path / ("idx.npz" + suffix)).exists()
+    d2 = FI.load_npz(p)
+    out2 = native.fmi_search_native(d2, enc, rl, min_seed_len=12, pack_mode=pack_mode)
+    assert isinstance(getattr(d2, "_host_pack" if pack_mode == 64 else "_host_pack32"), np.memmap)
+    assert out1[1:] == out2[1:] and sum(out1[1:]) >= 40
+    assert all(np.array_equal(out1[0][k], out2[0][k]) for k in KEYS)
+
+
+def test_host_packs_equal_jax_packs_word_for_word():
+    """The 32-byte pack (two superblocks) and the 64-byte rows built from
+    the port's cp_occ equal the JAX ones built from its cp_count and u32
+    one-hot halves: io/native.py's _hostpack32 and the rows of its
+    fmi_search_native (index/fmi_index.py's make_cp_pack layout)."""
+    from genomicsbench_palisade_tpu.io import native as jnative
+
+    codes = np.random.default_rng(2).integers(0, 4, 2_200_000).astype(np.uint8)
+    idx = IB.build_arrays(codes, device="cpu", sa_engine="sais")
+    assert idx.cp_occ.shape[0] > native.SB_BLOCKS == jnative.SB_BLOCKS
+    hi, lo = FI.split_one_hot(idx.cp_occ)
+    jidx = JFI.DeviceFmIndex(idx.ref_seq_len, idx.count, idx.sentinel_index,
+                             np.ascontiguousarray(idx.cp_count), hi, lo)
+    pack32, sb = native.hostpack32(idx)
+    jpack32, jsb = jnative._hostpack32(jidx)
+    assert pack32.dtype == jpack32.dtype == np.uint32 and sb.dtype == jsb.dtype == np.int64
+    np.testing.assert_array_equal(pack32, jpack32)
+    np.testing.assert_array_equal(sb, jsb)
+    pack64 = native.hostpack64(idx)
+    np.testing.assert_array_equal(pack64, JFI.make_cp_pack(jidx.cp_count, hi, lo))
+    assert native.hostpack64(idx) is pack64 and native.hostpack32(idx)[0] is pack32
 
 
 def test_chip_smoke_fmi_generators(tmp_path, monkeypatch):

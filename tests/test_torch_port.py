@@ -246,7 +246,8 @@ for n in ("cli.fmi", "ops.fmi", "ops.fmi_pipeline", "ops.occ_gather", "ops.oracl
           "ops.bsw_stripped", "ops.chain_micro", "tools.bsw_roofline", "tools.chain_roofline",
           "tools.bsw_idle_timing", "tools.probe_lanes", "io.plink", "ops.grm", "cli.grm",
           "models.bonito", "models.clair", "io.flax_msgpack", "cli.basecall", "cli.call_var",
-          "utils.precision"):
+          "utils.precision", "io.native", "utils.native_build", "utils.timing", "ops.dbg",
+          "ops.pileup", "cli.dbg", "cli.pileup", "cli.fmi_build"):
     assert "genomicsbench_palisade_tpu_torch." + n in names, n
 print("ok", len(names))
 """
