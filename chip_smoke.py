@@ -7,8 +7,12 @@ PyTorch versions.
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, run in the order 1, 2, 11, 12, 3-10, 16-24, 13-15 (any failure
-exits non-zero and prints no result):
+Phases, run in the order 1, 2, 11, 12, 3-10, 16-25, 13-15 (any failure
+exits non-zero and prints no result).  The host phases of the main paths
+run the JAX package's native engines by default (native/*.cpp through
+`io.native`): the pair scan (phase 6), event detection and scalings
+(10, 16), the FASTQ parse (12, 17), the eventalign QC and emit (16), the
+CTC beam (20) and the BAM decode (22).
   1. environment: Python, torch, CUDA, nvcc and the card (nvidia-smi);
   2. build csrc/phmm_forward.cu, csrc/bsw_extend.cu, csrc/chain_dp.cu,
      csrc/abea_fill.cu, csrc/abea_walk.cu, csrc/occ_gather.cu,
@@ -54,8 +58,9 @@ exits non-zero and prints no result):
      against the pooled results; every output of the counted run against
      the plain version on the same device tensors (consecutive launches of
      a bucket taken together; tolerance 0: integers), which also counts the
-     band cells for the bound; the kernel timed on the main path's largest
-     launch; 512 seeded pairs against the port's oracle (exactly); the 300
+     band cells for the bound, and the pairs held in each bucket; the
+     kernel timed on the main path's largest launch; 512 seeded pairs
+     against the port's oracle (exactly); the 300
      reference goldens (tests/fixtures/bsw_golden.json) through
      `cli.bsw.score_pairs` on the card, every output exactly;
   7. the chain kernel against its plain version on the card, bit for bit,
@@ -104,9 +109,9 @@ exits non-zero and prints no result):
      prepare_reads` (events and scalings on the host) and three runs of
      `cli.abea.run_reads`, launch counts reset just before and read just
      after; phase split, events/s end to end (load + prep + the median
-     run), the TSV emit timed apart; the run once more under
-     torch.profiler; the CLI's output for the first 20 reads against the
-     TSV of the pooled pairs; the counted run's outputs of every read of
+     run), the TSV emit of the first 64 reads timed apart (emit_head_s);
+     the run once more under torch.profiler; the CLI's output for the
+     first 20 reads against the TSV of the pooled pairs; the counted run's outputs of every read of
      up to 4,000 bases (ABEA_PLAIN_MAX_BASES) against the plain versions
      on the same device tensors; the kernels timed on the main path's
      launch and on those reads as one launch (the kernels line's
@@ -240,13 +245,14 @@ exits non-zero and prints no result):
  20. the basecall main path, cell basecall-512: abea-512's 512 reads (the
      same signals from --seed, 29.6 M samples) through `cli.basecall` with
      the full DNA_R941 model, seeded weights, chunks of 4,000, --precision
-     bf16, --beamsize 1; the split normalise / forward / decode, samples/s
+     bf16, --beamsize 1 (viterbi); the split normalise / forward /
+     decode, samples/s
      (the CLI's own figure and end to end), the forward's TFLOP/s, peak
      device memory; the FASTA (512 records over ACGT); bonito_golden.npz at
      f32 on the card within atol 5e-4 (fails if TF32 leaks in); bf16
      against f32 frame labels and called reads on the first 64 reads; card
      f32 log-probs against the CPU's on 4 reads (5e-4); the 4 shortest
-     reads at the default --beamsize 5 (the Python beam's host time);
+     reads at --beamsize 5, the native beam against the Python walk;
  21. the call_var main path, cell clair-131072: 32 batches of 4,096 pileup
      tensors [33, 8, 4] of Poisson(3) counts (seeded from --seed) in one
      npz through `cli.call_var` with seeded weights; load / predict /
@@ -272,6 +278,24 @@ exits non-zero and prints no result):
      No hand-written kernel on phases 22-24 (launch counts stay 0); each
      host figure is printed beside the host CPU's model and cores and the
      card's nvidia-smi line;
+ 25. the native host engines (on the card's host, after phase 24): each of
+     the fifteen engines of io.native and its callers was held, in the
+     phase of its cell, to its plain version (A1-A9: the numpy or Python
+     path) or to the device path (B1-B6: the engines that stand in for
+     device work), exactly, with both times: A1 the pair scan (bsw-large's
+     first 250,000 pairs), A2 the FASTQ parse (kmer-0.25g's first 512
+     reads, all of fmi-256m-2048's), A3 the BAM region decode (dbg-1m's
+     first 200 kb), A4 event detection (abea-512's reads of up to 4,000
+     bases), A5 the MoM scalings (all of abea-512), A6 the eventalign QC
+     (eventalign-512's first 128 reads), A7 the TSV emit (its first 16
+     reads), A8 the CTC beam (basecall-512's 4 shortest reads), A9 the
+     minimizer walk (kmer-0.25g's first 16 reads), B1 the poa host engine
+     (all of poa-64x10x750), B2 the kmer host counter (all of kmer-0.25g),
+     B3 the abea host fill and B6 the abea host walk (abea-512's reads of
+     up to 4,000 bases), B4 the phmm f64 host pass (dataset-550's largest
+     fallback bucket's first 4,096 cases), B5 the eventalign host realign
+     (eventalign-512's 16 shortest reads); phase 25 fails unless all
+     fifteen were checked and equal;
  15. the abea chain cost: per abea cell the ns and SM cycles (at the
      median clock of phases 13-14) a band of the fill and a step of the
      walk, and the chain floors; each kernel's device seconds over one
@@ -368,6 +392,7 @@ ABEA_READS = 512  # the f5c CLI's -K default (genomicsbench_palisade_tpu/cli/abe
 ABEA_LENS = (1000, 13450)  # 3,698,945 bases: -B 3.7M of the reference's GPU run
 ABEA_MAX_BASES = "3.7M"  # -B of the reference's GPU run (scripts/run-gpu.sh:32)
 ABEA_CLI_READS = 20
+ABEA_EMIT_READS = 64  # reads of abea-512 whose read-coordinate TSV is timed (f-strings)
 ABEA_ORACLE_READS = 8
 # grm-8192x65536: tools/bench_all.py:405-431's genotypes (dosage 0/1/2 at
 # 0.5/0.3/0.15, 5% missing) at 8,192 samples x 65,536 variants, as a .bed
@@ -492,6 +517,22 @@ PROBE_CHAIN = 8  # calls in a row a timing of the roofline phases (the bsw tool'
 # (the long-column kernel: three chunks of 512 rows, the last part full)
 STRIP_EDGE_QE = (8, 520, 1032)
 MICRO_EDGE_W = (1, 33, 129, 257, 700)  # one bank, two, five, past eight into shared memory
+# phase 25: the JAX package's native host engines, each held to its plain
+# version (or, for the six that stand in for device work, to the device
+# path) on its cell's data; where the plain version is slow, on a cut
+NATIVE_ENGINES = ("A1", "A2", "A3", "A4", "A5", "A6", "A7", "A8", "A9",
+                  "B1", "B2", "B3", "B4", "B5", "B6")
+BSW_NATIVE_CHECK_PAIRS = 250_000  # bsw-large's head through the numpy parse
+KMER_MINIMIZER_READS = 16  # kmer-0.25g's reads through the Python minimizer walk
+EA_SCALING_PLAIN_READS = 128  # eventalign-512's reads through the numpy QC
+EA_EMIT_PLAIN_READS = 16  # and through the numpy emit
+EA_REALIGN_HOST_READS = 16  # its shortest reads through the native realign and the card's
+DBG_NATIVE_CHECK_BASES = 200_000  # dbg-1m's region head through the Python BAM decode
+PHMM_NATIVE_CASES = 4096  # the largest f64 bucket's head through the native double pass
+# the main path's --beamsize: the CLI's default 5 runs the native beam at
+# ~8.9 us a step, 90.6 s over the cell's 10.2 M steps (NVIDIA H100 80GB HBM3
+# box's host), so the cell keeps viterbi; phase 25 checks the beam at 5
+BASECALL_BEAMSIZE = 1
 
 
 def strip_chain_cycles(lanes: int, k: int) -> int:
@@ -508,6 +549,42 @@ def log(msg: str):
 
 
 # ---------------------------------------------------------------- data
+
+
+def native_row(rec, engine: str, cell: str, native_s: float, plain_s: float, plain: str,
+               equal: bool, size: str, **extra):
+    """One of phase 25's checks: the native host engine `engine` (its id,
+    A1-A9 or B1-B6, then its name) against its plain version or the device
+    path (`plain`) on `size` of `cell`'s data, with both times; fails
+    unless they are equal."""
+    row = {"engine": engine, "cell": cell, "native_s": native_s, "plain": plain,
+           "plain_s": plain_s, "size": size, "equal": bool(equal), **extra,
+           "host_cores": os.cpu_count(), "card": rec.card}
+    rec.native.append(row)
+    log("native engine " + json.dumps(row))
+    if not equal:
+        fail(f"native engine {engine} differs from {plain} on {cell} ({size})")
+
+
+def timed(fn):
+    """(fn(), its wall seconds)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def same_records(a, b) -> bool:
+    """Two lists of BamRecords equal field by field."""
+    return len(a) == len(b) and all(
+        (x.name, x.flag, x.ref_id, x.pos, x.mapq, x.cigar, x.tags)
+        == (y.name, y.flag, y.ref_id, y.pos, y.mapq, y.cigar, y.tags)
+        and np.array_equal(x.seq_nt16, y.seq_nt16) and np.array_equal(x.qual, y.qual)
+        for x, y in zip(a, b))
+
+
+def same_events(a, b) -> bool:
+    return a.dtype == b.dtype and len(a) == len(b) and all(
+        np.array_equal(a[k], b[k]) for k in ("start", "length", "mean", "stdv"))
 
 
 def synth_bench_cases(rng, b, rl, hl):
@@ -1513,13 +1590,13 @@ def max_abs_diff(torch, a, b) -> float:
 
 def device_profile(torch, fn) -> dict:
     """Run fn under torch.profiler; device seconds by kind and the share
-    of the wall time the device was busy (union of its intervals).  A
-    trace can come back without any device event (seen once in a while on
-    the H100 box, for a run that launched kernels): then fn runs under a
-    new trace, up to PROFILE_ATTEMPTS times, and the count is reported.
-    The trace's events sit in reference cycles (fmi's: ~3.7 M objects)
-    that slowed every later Python-heavy phase by 5-15% until a full
-    collection, so one runs before this returns."""
+    of the wall time the device was busy (union of its intervals).  The
+    device events are read from the profiler's raw kineto results: its
+    events() builds a Python object for each host and device event, which
+    for fmi's batch (~3.7 M objects) took 55-65 s of the script.  A trace
+    can come back without any device event (seen once in a while on the
+    H100 box, for a run that launched kernels): then fn runs under a new
+    trace, up to PROFILE_ATTEMPTS times, and the count is reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1530,15 +1607,15 @@ def device_profile(torch, fn) -> dict:
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+        dev = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+        if dev:
             break
     spans, kinds = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        start, end = e.time_range.start, e.time_range.end
+    for e in dev:
+        start, end = e.start_ns(), e.end_ns()
         spans.append((start, end))
-        name = e.name
+        name = e.name()
         kind = ("phmm_forward_f32" if "phmm_forward_kernel<float" in name else
                 "phmm_forward_f64" if "phmm_forward_kernel<double" in name else
                 "bsw_extend" if "bsw_extend_kernel" in name else
@@ -1549,8 +1626,8 @@ def device_profile(torch, fn) -> dict:
                 "occ_gather_tile" if "occ_gather_tile_kernel" in name else
                 "memcpy_htod" if "HtoD" in name else
                 "memcpy_dtoh" if "DtoH" in name else "other")
-        kinds[kind] = kinds.get(kind, 0.0) + (end - start) * 1e-6
-    del prof
+        kinds[kind] = kinds.get(kind, 0.0) + (end - start) * 1e-9
+    del prof, dev
     gc.collect()
     if not spans:
         return {"wall_s": wall, "attempts": attempt,
@@ -1562,7 +1639,7 @@ def device_profile(torch, fn) -> dict:
             cur_s, cur_e = s, e
         else:
             cur_e = max(cur_e, e)
-    busy = (busy + cur_e - cur_s) * 1e-6
+    busy = (busy + cur_e - cur_s) * 1e-9
     return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
             "device_s_by_kind": kinds, "device_events": len(spans), "attempts": attempt}
 
@@ -1615,7 +1692,9 @@ class Port:
         from genomicsbench_palisade_tpu_torch.io import chain_dump
         from genomicsbench_palisade_tpu_torch.io.pairs import parse_pairs_soa
         from genomicsbench_palisade_tpu_torch.io.phmm_batch import parse_testfile
-        from genomicsbench_palisade_tpu_torch.io.fastq import encode_reads, read_sequences
+        from genomicsbench_palisade_tpu_torch.io.fastq import (encode_reads, read_codes,
+                                                               read_sequences)
+        from genomicsbench_palisade_tpu_torch.ops import phmm_f64 as F64
         from genomicsbench_palisade_tpu_torch.ops import abea as A
         from genomicsbench_palisade_tpu_torch.ops import abea_cuda
         from genomicsbench_palisade_tpu_torch.ops import bsw as W
@@ -1653,6 +1732,7 @@ class Port:
                           C=C, chain_cuda=chain_cuda, chain_oracle=chain_oracle,
                           cli_abea=cli_abea, abea_batch_from_numpy=abea_batch_from_numpy,
                           abea_signal=abea_signal, read_sequences=read_sequences, A=A,
+                          read_codes=read_codes, F64=F64,
                           abea_cuda=abea_cuda, abea_events=abea_events,
                           abea_oracle=abea_oracle, cli_fmi=cli_fmi,
                           fmi_index_from_numpy=fmi_index_from_numpy, fmi_builder=fmi_builder,
@@ -1689,6 +1769,7 @@ class Record:
         self.sm_mhz = []  # the median SM clock of each sampled phase (13-14)
         self.abea_chain = []  # the abea kernels' chain rows, printed at the end
         self.card = ""  # nvidia-smi's name and power limit, beside phases 17-18's figures
+        self.native = []  # phase 25's rows: a native host engine against its plain version
 
     def profiled(self, cell, prof):
         """Keep each kernel's summed device time from a main path's profile."""
@@ -1836,6 +1917,21 @@ def phmm_phases(torch, port: Port, rec: Record, seed: int):
             seen[name]["plain_s"] += plain_ms * 1e-3
     log("main path vs plain, every output " + json.dumps(seen))
 
+    # phase 25's B4: the native double pass on the host against the f64
+    # kernel's outputs, on the head of the largest fallback bucket
+    kb = max((kb for kb in kept if kb["f64_batch"] is not None), key=lambda kb: len(kb["raw_f64"]))
+    n = min(PHMM_NATIVE_CASES, len(kb["raw_f64"]))
+    keys = port.F64.INT8_KEYS + port.F64.INT32_KEYS
+    sub_t = {k: kb["f64_batch"][k][:n] for k in keys}
+    sub = {k: v.cpu().numpy() for k, v in sub_t.items()}
+    raw, native_s = timed(lambda: port.F64.phmm_forward_f64_native(sub))
+    dev_ms, dev = time_ms(torch, lambda: P.forward_raw(sub_t, torch.float64), 3)
+    native_row(rec, "B4 phmm_forward_f64_native", "dataset-550", native_s, dev_ms * 1e-3,
+               "the f64 kernel (phmm_forward_f64)",
+               np.array_equal(raw, kb["raw_f64"][:n]) and np.array_equal(raw, dev.cpu().numpy()),
+               f"the first {n} of bucket {kb['bucket'][0]}x{kb['bucket'][1]}'s "
+               f"{len(kb['raw_f64'])} fallback cases")
+
     # every launch of the counted run timed again on its bucket's tensors;
     # the kernels' figures are those of each pass's largest bucket
     for name, dtype, bkey, rkey in passes:
@@ -1934,6 +2030,24 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
             fail(f"parsed {n} pairs, wrote {BSW_PAIRS}")
         cells = int(soa["q_len"].astype(np.int64) @ soa["t_len"].astype(np.int64))
 
+        # phase 25's A1: the native scan against the numpy parse on the file's head
+        n_head = min(BSW_NATIVE_CHECK_PAIRS, n)
+        end = int(soa["q_off"][n_head - 1]) + int(soa["q_len"][n_head - 1]) + 1
+        head = Path(tmp) / "pairs_native_head.txt"
+        with open(pf, "rb") as src, open(head, "wb") as dst:
+            dst.write(src.read(end))
+        got, native_s = timed(lambda: port.parse_pairs_soa(head))
+        plain, plain_s = timed(lambda: port.parse_pairs_soa(head, use_native=False))
+        head.unlink()
+        native_row(rec, "A1 parse_pairs_struct_native + sub48_native", "bsw-large", native_s,
+                   plain_s, "io.pairs' numpy parse",
+                   all(np.array_equal(got[k], plain[k]) and got[k].dtype == plain[k].dtype
+                       for k in got)
+                   and all(np.array_equal(got[k], soa[k][:n_head]) for k in got if k != "codes"),
+                   f"the file's first {n_head} pairs ({end / 1e6:.1f} MB)",
+                   whole_file_native_s=parse_s)
+        del got, plain
+
         stats: dict = {}
         kept: list = []  # per launch: the tensors it was given, its output
         port.reset_launches()
@@ -2008,6 +2122,7 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
             size = 0
         groups[-1].append(kb)
         size += m
+    held: dict = {}  # pairs held by bucket
     for grp in groups:
         batch = {k: v if k == "codes" else torch.cat([kb["batch"][k] for kb in grp])
                  for k, v in grp[0]["batch"].items()}
@@ -2020,12 +2135,15 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
         seen["plain_calls"] += 1
         seen["plain_s"] += plain_ms * 1e-3
         seen["band_cells"] += st["cells"]
+        key = "x".join(map(str, grp[0]["bucket"]))
+        held[key] = held.get(key, 0) + got.shape[1]
     if seen["launches"] != len(kept) or seen["pairs"] != n:
         fail(f"the plain check saw {seen['launches']} launches and {seen['pairs']} pairs")
     bases = int(soa["q_len"].sum(dtype=np.int64) + soa["t_len"].sum(dtype=np.int64))
     bound_all_ms, seen["bound_by"] = bound_of(n, bases, seen["band_cells"])
     seen["bound_s_all_launches"] = bound_all_ms * 1e-3
     seen["kernel_s_counted_run"] = stats["kernel_s"]
+    seen["pairs_by_bucket"] = held
     log("bsw main path vs plain, every output " + json.dumps(seen))
 
     # the kernel and the plain version on the main path's largest launch
@@ -2561,8 +2679,12 @@ def abea_phases(torch, port: Port, rec: Record, seed: int):
         total_s = load_s + prep_s + run_s_median
         t0 = time.perf_counter()
         tsv_buf = io.StringIO()
-        n_pairs = cli_abea.emit(prep, results, model, tsv_buf)
+        head_prep = cli_abea.PreparedReads(ABEA_EMIT_READS, *(
+            getattr(prep, f)[:ABEA_EMIT_READS] for f in ("names", "seqs", "events", "shifts",
+                                                         "scales")))
+        emit_rows = cli_abea.emit(head_prep, results[:ABEA_EMIT_READS], model, tsv_buf)
         emit_s = time.perf_counter() - t0
+        n_pairs = sum(len(r) for r in results)
         aligned = sum(1 for r in results if r)
         walk_np = {k: v.cpu().numpy() for k, v in kept["walk"].items()}
         e2e = {"reads": len(records), "bases": int(lengths.sum()), "samples": samples,
@@ -2575,8 +2697,10 @@ def abea_phases(torch, port: Port, rec: Record, seed: int):
                "load_s": load_s, "prep_s": prep_s, **pstats, **stats, "run_s_all": runs_s,
                "run_s_median": run_s_median, "total_s": total_s,
                "events_per_s_end_to_end": n_events / total_s,
-               "reads_per_s_end_to_end": len(records) / total_s, "emit_s": emit_s,
-               "tsv_mb": len(tsv_buf.getvalue()) / 1e6, "launches": launches}
+               "reads_per_s_end_to_end": len(records) / total_s,
+               "emit_head_reads": ABEA_EMIT_READS, "emit_head_rows": emit_rows,
+               "emit_head_s": emit_s, "emit_us_per_row": emit_s / max(emit_rows, 1) * 1e6,
+               "emit_head_tsv_mb": len(tsv_buf.getvalue()) / 1e6, "launches": launches}
         del tsv_buf
         log("abea end to end " + json.dumps(e2e))
         rec.launched(launches, ("abea_fill", "abea_walk"))
@@ -2688,6 +2812,59 @@ def abea_phases(torch, port: Port, rec: Record, seed: int):
         f"({min(lens)}-{max(lens)} bases) exact ({time.perf_counter() - t0:.1f} s)")
     if bad or len(sel) != ABEA_ORACLE_READS:
         fail(f"abea results differ from the oracle in reads {bad}")
+
+    # phase 25 on abea-512: A4 and A5 (the main path's host prep) against
+    # their numpy versions, B3 (the host fill) and B6 (the host walk of the
+    # main path's fill) against the kernels' results
+    EV = port.abea_events
+    cut = [j for j, s in enumerate(prep.seqs) if len(s) <= ABEA_PLAIN_MAX_BASES]
+    cut_size = f"{len(cut)} reads of up to {ABEA_PLAIN_MAX_BASES} bases"
+    raws = [signals[prep.names[j]] for j in cut]
+    got, native_s = timed(lambda: EV.detect_events_batch(raws))
+    plain, plain_s = timed(lambda: EV.detect_events_batch(raws, use_native=False))
+    native_row(rec, "A4 detect_events_native", "abea-512", native_s, plain_s,
+               "ops.events' numpy lockstep",
+               all(same_events(a, b) and same_events(a, prep.events[j])
+                   for a, b, j in zip(got, plain, cut)), cut_size,
+               whole_batch_native_s=pstats["events_s"])
+    (sh, sc), native_s = timed(lambda: EV.estimate_scalings_mom_batch(prep.seqs, model,
+                                                                      prep.events))
+    (psh, psc), plain_s = timed(lambda: EV.estimate_scalings_mom_batch(
+        prep.seqs, model, prep.events, use_native=False))
+    native_row(rec, "A5 gt_mom_scalings", "abea-512", native_s, plain_s,
+               "ops.events' numpy sums",
+               sh.tobytes() == psh.tobytes() and sc.tobytes() == psc.tobytes()
+               and sh.tolist() == prep.shifts and sc.tolist() == prep.scales,
+               f"all {len(prep.seqs)} reads")
+    args = ([prep.seqs[j] for j in cut], [prep.events[j]["mean"] for j in cut], model,
+            [prep.scales[j] for j in cut], [prep.shifts[j] for j in cut])
+    host, native_s = timed(lambda: A.align_events_batch(*args, use_native=True))
+    dev, dev_s = timed(lambda: A.align_events_batch(*args, device=DEVICE))
+    native_row(rec, "B3 align_events_batch_native", "abea-512", native_s, dev_s,
+               "the abea kernels (align_events_batch on the card)",
+               host == dev == [results[j] for j in cut], cut_size)
+    # B6 on the main path's fill of the cut's reads (their rows in batch
+    # order; every read of the batch is a prepared read, so the same
+    # indices pick them from prep)
+    cut_t = torch.nonzero(batch["nk"].long() + (port.abea_oracle.KMER_SIZE - 1)
+                          <= ABEA_PLAIN_MAX_BASES)[:, 0]
+    cut_b, rows = abea_subset(torch, batch, cut_t)
+    cut_f = {k: v[cut_t] if k == "seed" else v[rows] for k, v in fill.items()}
+    rows_of = cut_t.tolist()
+    tb, native_s = timed(lambda: A.traceback_host(
+        [prep.seqs[j] for j in rows_of], [prep.events[j]["mean"] for j in rows_of], model,
+        [prep.scales[j] for j in rows_of], [prep.shifts[j] for j in rows_of], cut_f))
+
+    def walk_decode():
+        walk = A.abea_walk(cut_b, cut_f)
+        return A.decode(cut_b["band_off"].cpu().numpy(), {k: v.cpu().numpy()
+                                                           for k, v in walk.items()})
+
+    walked, dev_s = timed(walk_decode)
+    native_row(rec, "B6 abea_traceback_native", "abea-512", native_s, dev_s,
+               "the abea_walk kernel and decode", batch["ne"].numel() == len(prep.seqs)
+               and tb == walked == [results[j] for j in rows_of],
+               f"{len(rows_of)} reads of up to {ABEA_PLAIN_MAX_BASES} bases (the main path's fill)")
 
 
 def golden_eventalign_entries(port, counts):
@@ -2829,6 +3006,61 @@ def eventalign_phase(torch, port: Port, rec: Record, seed: int):
     if bad or len(sel) != EA_ORACLE_READS:
         fail(f"eventalign realign differs in reads {bad}")
 
+    # phase 25 on eventalign-512: A6 (QC) and A7 (the emit) against their
+    # numpy and f-string versions, B5 (the host realign) against the card's
+    prep, pairs = keep["prep"], keep["pairs"]
+    m = EA_SCALING_PLAIN_READS
+    got, native_s = timed(lambda: EA.scaling_batch(prep.seqs[:m], prep.events[:m], pairs[:m],
+                                                   model))
+    plain, plain_s = timed(lambda: EA.scaling_batch(prep.seqs[:m], prep.events[:m], pairs[:m],
+                                                    model, use_native=False))
+
+    def same_scaling(g, p):
+        return (g[0] == p[0] and g[3] == p[3] and (g[1] is None) == (p[1] is None)
+                and (g[1] is None or all(np.float32(g[1][k]).tobytes()
+                                         == np.float32(p[1][k]).tobytes() for k in g[1]))
+                and (g[2] is None) == (p[2] is None)
+                and (g[2] is None or np.array_equal(g[2], p[2])))
+
+    native_row(rec, "A6 gt_eventalign_scaling", "eventalign-512", native_s, plain_s,
+               "ops.eventalign's numpy scaling_read",
+               len(got) == len(plain) == min(m, len(prep.seqs))
+               and all(same_scaling(g, p) for g, p in zip(got, plain)),
+               f"the first {len(got)} of {len(prep.seqs)} reads",
+               whole_batch_native_s=stats["scaling_s"])
+    head = list(zip(rr, alns))[:EA_EMIT_PLAIN_READS]
+
+    def emit(native):
+        return [EA.emit_tsv(a, r.events, model, r.sc, j, r.record.name, "chr1", 4000.0,
+                            use_native=native) for j, (r, a) in enumerate(head)]
+
+    got, native_s = timed(lambda: emit(True))
+    plain, plain_s = timed(lambda: emit(False))
+    rows = sum(len(a.ref_pos) for _, a in head)
+    native_row(rec, "A7 eventalign_emit_native", "eventalign-512", native_s, plain_s,
+               "ops.eventalign.emit_tsv_lines_arrays (numpy columns, f-string rows)",
+               got == plain and rows > 0,
+               f"the first {len(head)} reads, {rows} rows",
+               whole_batch_native_s=stats["emit_s"])
+    short = sorted(range(len(rr)), key=lambda j: rr[j].read_length)[:EA_REALIGN_HOST_READS]
+    sub = [rr[j] for j in short]
+
+    def host_realign():
+        return [EA.realign_read_arrays(r.record, r.ref_segment, r.record.pos, r.read_length,
+                                       r.events, r.sc, model, r.b2e, r.events_per_base)
+                for r in sub]
+
+    host, native_s = timed(host_realign)
+    card, dev_s = timed(lambda: EA.realign_batch(sub, model, DEVICE))
+    native_row(rec, "B5 eventalign_realign_native", "eventalign-512", native_s, dev_s,
+               "realign_batch on the card (the CLI's route)",
+               all(np.array_equal(h[0], a.ref_pos) and np.array_equal(h[1], a.event_idx)
+                   and np.array_equal(np.frombuffer(h[2], np.uint8) == ord("B"),
+                                      a.state == EA.BAD_EVENT)
+                   and np.array_equal(h[0], b.ref_pos)
+                   for h, a, b in zip(host, [alns[j] for j in short], card)),
+               f"the {len(sub)} shortest reads that passed QC")
+
     # the 25 goldens through the CLI's functions on the card: statuses,
     # scalings, summaries and every TSV row exactly
     t0 = time.perf_counter()
@@ -2911,6 +3143,40 @@ def kmer_phase(torch, port: Port, rec: Record, seed: int):
                 or not KMER_GENOME_MBP * 800_000 < metrics["total_kmers"] < KMER_GENOME_MBP * 1_600_000
                 or not 0 < metrics["hash_size"] < metrics["total_kmers"]):
             fail(f"kmer-0.25g: {e2e}")
+
+        # phase 25 on kmer-0.25g: A2 (the read) against the Python reader,
+        # A9 (minimizers) against the oracle's walk on the first reads, B2
+        # (the host counter) against the device counter
+        with contextlib.redirect_stdout(io.StringIO()):
+            got, native_s = timed(lambda: cli.read_reads(str(tmp / "parity.fa"), KMER_MIN_LEN))
+            plain, plain_s = timed(lambda: cli.read_reads(str(tmp / "parity.fa"), KMER_MIN_LEN,
+                                                          use_native=False))
+        lut = np.full(256, 3, np.uint8)
+        lut[np.frombuffer(b"ACGTacgt", np.uint8)] = [0, 1, 2, 3, 0, 1, 2, 3]
+        native_row(rec, "A2 parse_reads_native (kmer)", "kmer-0.25g", native_s, plain_s,
+                   "io.fastq.read_sequences (strings, 2-bit encoded for the check)",
+                   len(plain) == len(got) == KMER_PARITY_READS
+                   and [len(p) for p in plain] == [len(r) for r in got]
+                   and all(np.array_equal(g, r) for g, r in zip(got, reads))
+                   and np.array_equal(np.concatenate(got),
+                                      lut[np.frombuffer("".join(plain).encode(), np.uint8)]),
+                   f"the first {len(got)} reads (parity.fa)", whole_file_native_s=t1 - t0)
+        del got, plain
+        wnd = 5  # the CLI's minimizer_window default
+        few = reads[:KMER_MINIMIZER_READS]
+        got, native_s = timed(lambda: K.build_minimizer_index(few, k=k, window=wnd,
+                                                              min_read_length=KMER_MIN_LEN))
+        want, plain_s = timed(lambda: K.build_minimizer_index(
+            few, k=k, window=wnd, min_read_length=KMER_MIN_LEN, use_native=False))
+        native_row(rec, "A9 minimizer_counts_native", "kmer-0.25g", native_s, plain_s,
+                   "the oracle's deque walk",
+                   got == want and sum(got["counter"].values()) > 0,
+                   f"the first {len(few)} reads")
+        host, native_s = timed(lambda: K.count_kmers_host(reads, k=k,
+                                                          min_read_length=KMER_MIN_LEN))
+        native_row(rec, "B2 count_kmers_host", "kmer-0.25g", native_s, t2 - t1,
+                   "count_kmers_batched on the card (the CLI's route)", host == metrics,
+                   f"all {len(reads)} reads")
 
         # the CLI's lines for the first reads
         t0 = time.perf_counter()
@@ -3047,6 +3313,14 @@ def poa_phase(torch, port: Port, rec: Record, seed: int):
                 or any(launches.values())
                 or not all(POA_LEN - 60 < len(c) < POA_LEN + 60 for c in cons)):
             fail(f"poa-64x10x750: {e2e}, consensus lengths {sorted(len(c) for c in cons)}")
+
+        # phase 25's B1: the native host engine against the device aligner
+        host_t = {}
+        host, native_s = timed(lambda: POA.msa_consensus_host(batches, POA_PARAMS,
+                                                              timings=host_t))
+        native_row(rec, "B1 msa_consensus_host", "poa-64x10x750", native_s, t2 - t1,
+                   "msa_consensus_batch on the card (--engine auto)", host == cons,
+                   f"all {len(batches)} windows", engine_phases_s=host_t)
 
         # the CLI's stdout for the file against the pooled consensus
         t0 = time.perf_counter()
@@ -3265,21 +3539,24 @@ def basecall_phase(torch, port: Port, rec: Record, seed: int):
         log(f"basecall dataset: abea-512's {len(signals)} reads, {samples} samples, "
             f"{chunks} chunks of {BASECALL_CHUNK}")
 
-        # the timed run: the CLI at bf16, viterbi
+        # the timed run: the CLI at bf16 and BASECALL_BEAMSIZE
         port.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         timings, out, err = {}, io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            cli.main(["random", str(npz), "--chunksize", str(BASECALL_CHUNK), "--beamsize", "1",
-                      "--precision", "bf16"], timings=timings)
+            cli.main(["random", str(npz), "--chunksize", str(BASECALL_CHUNK), "--beamsize",
+                      str(BASECALL_BEAMSIZE), "--precision", "bf16"], timings=timings)
         total = time.perf_counter() - t0
         launches = port.launches()
     flops = chunks * bonito_flops(Bm.DNA_R941_BLOCKS, BASECALL_CHUNK)
     e2e = {"reads": timings["reads"], "samples": timings["samples"], "chunks": chunks,
            "load_s": total - timings["duration_s"],
-           **{k: timings.get(k, 0.0) for k in ("normalise_s", "forward_s", "decode_s")},
+           "beamsize": BASECALL_BEAMSIZE,
+           **{k: timings.get(k, 0.0) for k in ("normalise_s", "forward_s", "decode_s",
+                                               "beam_s")},
+           "beam_steps": sum(basecall_frames(len(v)) for v in signals.values()),
            "duration_s": timings["duration_s"],
            "samples_per_s": timings["samples"] / timings["duration_s"],
            "samples_per_s_end_to_end": timings["samples"] / total,
@@ -3329,7 +3606,8 @@ def basecall_phase(torch, port: Port, rec: Record, seed: int):
         same_frames += int((lb.argmax(-1) == lf.argmax(-1)).sum())
         frames += len(lb)
         same_reads += Bm.viterbi_decode(lf) == called[name]
-        same_cli += Bm.viterbi_decode(lb) == called[name]
+        same_cli += (Bm.beam_search_decode(lb, beam_size=BASECALL_BEAMSIZE)
+                     if BASECALL_BEAMSIZE > 1 else Bm.viterbi_decode(lb)) == called[name]
         if i < BASECALL_CPU_READS:
             cpu_err = max(cpu_err, max_abs_diff(torch, lf, posteriors(("cpu", "torch.float32"),
                                                                       signals[name])))
@@ -3352,6 +3630,17 @@ def basecall_phase(torch, port: Port, rec: Record, seed: int):
         f"{beam_t['forward_s']:.3f} s; bases {[len(b) for b in beam]}")
     if not all(b and set(b) <= set("ACGT") for b in beam):
         fail("basecall: the beam called no bases")
+
+    # phase 25's A8: the native beam against the Python walk on those reads
+    lps = [posteriors((DEVICE, "torch.bfloat16"), signals[name])
+           for name in list(signals)[:BASECALL_BEAM_READS]]
+    got, native_s = timed(lambda: [Bm.beam_search_decode(lp, beam_size=5) for lp in lps])
+    want, plain_s = timed(lambda: [Bm.beam_search_decode(lp, beam_size=5, use_native=False)
+                                   for lp in lps])
+    native_row(rec, "A8 ctc_beam_native", "basecall-512", native_s, plain_s,
+               "models.bonito's Python beam walk", got == want and all(got),
+               f"the {BASECALL_BEAM_READS} shortest reads, {sum(len(lp) for lp in lps)} steps, "
+               "--beamsize 5", main_path_beam_s=e2e["beam_s"])
 
 
 def clair_flops() -> int:
@@ -3485,6 +3774,19 @@ def dbg_phase(torch, port: Port, rec: Record, seed: int):
         if got != want or not want[2]:
             fail(f"dbg-1m: the native windows {got} differ from the Python ones {want}")
 
+        # phase 25's A3: the native BAM decode against the Python one on the region's head
+        bam = str(tmp / "reads.bam")
+        got, native_s = timed(lambda: port.bam.read_bam_region(bam, "chr1", 0,
+                                                               DBG_NATIVE_CHECK_BASES))
+        want, plain_s = timed(lambda: port.bam.read_bam_region(bam, "chr1", 0,
+                                                               DBG_NATIVE_CHECK_BASES,
+                                                               use_native=False))
+        native_row(rec, "A3 read_bam_region_native", "dbg-1m", native_s, plain_s,
+                   "io.bam's Python decode", got[0] == want[0] and same_records(got[1], want[1])
+                   and len(got[1]) > 0,
+                   f"chr1:1-{DBG_NATIVE_CHECK_BASES}, {len(got[1])} records",
+                   whole_region_load_s=stats.get("load_s"))
+
 
 def pileup_phase(torch, port: Port, rec: Record, seed: int):
     """Phase 23, pileup-1m: cli.pileup over the indexed contig (the fused
@@ -3596,6 +3898,19 @@ def fmi_build_phase(torch, port: Port, rec: Record, seed: int):
             f"({time.perf_counter() - t0:.1f} s)")
         if not same or int(amb[0].split()[2]) != len(holes) or not holes:
             fail("fmi-build-16m: the written index differs from the card's doubling build")
+
+
+def native_engines_phase(rec: Record):
+    """Phase 25: every native host engine was held to its plain version or
+    the device path (the rows logged in phases 4-22), and all were equal."""
+    seen = sorted({r["engine"].split()[0] for r in rec.native})
+    log("native engines " + json.dumps({
+        "engines": seen, "checks": len(rec.native),
+        "equal": all(r["equal"] for r in rec.native),
+        "rows": [{k: r[k] for k in ("engine", "cell", "native_s", "plain_s", "equal")}
+                 for r in rec.native]}))
+    if seen != sorted(NATIVE_ENGINES) or not all(r["equal"] for r in rec.native):
+        fail(f"native engines checked: {seen}, expected {sorted(NATIVE_ENGINES)}")
 
 
 def occ_bound(rows_needed: int, n_idx: int, row_bytes: int):
@@ -3757,6 +4072,13 @@ def fmi_phase(torch, port: Port, rec: Record, seed: int):
         torch.cuda.synchronize()
         pstats: dict = {}
         prep = cli_fmi.prepare(didx, str(fq), DEVICE, stats=pstats)
+        (enc, rl), native_s = timed(lambda: port.read_codes(fq))
+        (penc, prl), plain_s = timed(lambda: port.read_codes(fq, use_native=False))
+        native_row(rec, "A2 parse_reads_native (fmi)", "fmi-256m-2048", native_s, plain_s,
+                   "io.fastq.read_sequences and encode_reads",
+                   all(np.array_equal(x, y) and x.dtype == y.dtype
+                       for x, y in ((enc, penc), (rl, prl), (enc, prep.enc), (rl, prep.rl))),
+                   f"all {len(rl)} reads")
         runs_s, run_stats, results = [], [], None
         for _ in range(3):
             st: dict = {}
@@ -3775,7 +4097,7 @@ def fmi_phase(torch, port: Port, rec: Record, seed: int):
         st = run_stats[med]
         n_phase = [sum(r[i] for r in results) for i in (1, 2, 3)]
         steps = {k: st[k] for k in ("steps1", "steps2", "steps3")}
-        total_s = pstats["load_s"] + pstats["encode_s"] + runs_s[med]
+        total_s = pstats["index_s"] + pstats["reads_s"] + runs_s[med]
         e2e = {"reads": len(prep.rl), "bases": int(prep.rl.sum()), "batches": len(results),
                **pstats, "search_s": st["search_s"], "d2h_unpack_sort_s": st["collect_s"],
                "run_s_all": runs_s, "run_s_median": runs_s[med], "total_s": total_s,
@@ -4191,24 +4513,30 @@ def main(argv=None) -> int:
     rec.card = smi
     # the fmi engine is launch-bound, and every launch after a torch.profiler
     # trace costs more (PERF.md §6): phases 11-12 run before any profile
-    occ_phase(torch, port, rec, args.seed)
-    fmi_phase(torch, port, rec, args.seed)
-    phmm_phases(torch, port, rec, args.seed)
-    bsw_phases(torch, port, rec, args.seed)
-    chain_phases(torch, port, rec, args.seed)
-    abea_phases(torch, port, rec, args.seed)
-    eventalign_phase(torch, port, rec, args.seed)
-    kmer_phase(torch, port, rec, args.seed)
-    poa_phase(torch, port, rec, args.seed)
-    grm_phase(torch, port, rec, args.seed)
-    basecall_phase(torch, port, rec, args.seed)
-    clair_phase(torch, port, rec, args.seed)
-    dbg_phase(torch, port, rec, args.seed)
-    pileup_phase(torch, port, rec, args.seed)
-    fmi_build_phase(torch, port, rec, args.seed)
-    bsw_roofline_phase(torch, port, rec, args.seed)
-    chain_roofline_phase(torch, port, rec)
+    phase_s = {}  # each phase function's wall seconds, for the script's time budget
+    for fn, args_ in ((occ_phase, (torch, port, rec, args.seed)),
+                      (fmi_phase, (torch, port, rec, args.seed)),
+                      (phmm_phases, (torch, port, rec, args.seed)),
+                      (bsw_phases, (torch, port, rec, args.seed)),
+                      (chain_phases, (torch, port, rec, args.seed)),
+                      (abea_phases, (torch, port, rec, args.seed)),
+                      (eventalign_phase, (torch, port, rec, args.seed)),
+                      (kmer_phase, (torch, port, rec, args.seed)),
+                      (poa_phase, (torch, port, rec, args.seed)),
+                      (grm_phase, (torch, port, rec, args.seed)),
+                      (basecall_phase, (torch, port, rec, args.seed)),
+                      (clair_phase, (torch, port, rec, args.seed)),
+                      (dbg_phase, (torch, port, rec, args.seed)),
+                      (pileup_phase, (torch, port, rec, args.seed)),
+                      (fmi_build_phase, (torch, port, rec, args.seed)),
+                      (native_engines_phase, (rec,)),
+                      (bsw_roofline_phase, (torch, port, rec, args.seed)),
+                      (chain_roofline_phase, (torch, port, rec))):
+        t0 = time.perf_counter()
+        fn(*args_)
+        phase_s[fn.__name__] = time.perf_counter() - t0
     abea_chain_lines(rec)
+    log("phase seconds " + json.dumps(phase_s))
 
     # 15. the kernels line, the card, the last line
     where = {"phmm_forward_f32": (SOURCE, REPLACES), "phmm_forward_f64": (SOURCE, REPLACES),

@@ -23,6 +23,10 @@ windowed de Bruijn assembler (`ops.dbg`, CLI `cli.dbg`), medaka's pileup
 counts (`ops.pileup`, CLI `cli.pileup`), bwa-mem2's index builder with the
 suffix array by SA-IS (`index.builder`, CLI `cli.fmi_build`) and the fmi
 CLI's host engine (`cli.fmi --engine host`); `utils.timing.KernelTimer`.
+`io.native` binds the JAX package's other native host engines too: the
+readers, event detection, the eventalign QC, realign and emit, the CTC
+beam, the minimizer walk, and the host engines of poa, kmer, abea and the
+phmm f64 pass.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU and no explicit device they raise.  Kernels are built at first use,

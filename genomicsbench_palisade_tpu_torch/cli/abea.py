@@ -228,8 +228,10 @@ def eventalign_batch(entries, contigs, model, opts: EventalignOptions, counts: d
     the events detected ("events"), and the counters of run_reads and
     realign_batch under "abea" and "realign".  `keep`, when given, gets
     "scaling": per entry with enough events its (read index, status,
-    scalings, events_per_base), and "realign" and "alignments": the
-    RealignReads of the reads that passed QC and their Alignments."""
+    scalings, events_per_base), "prep" and "pairs": those entries'
+    PreparedReads and abea pairs (scaling_batch's inputs), and "realign"
+    and "alignments": the RealignReads of the reads that passed QC and
+    their Alignments."""
     stats = {} if stats is None else stats
     for k in ("events_s", "mom_s", "abea_s", "scaling_s", "realign_s", "emit_s"):
         stats.setdefault(k, 0.0)
@@ -284,7 +286,8 @@ def eventalign_batch(entries, contigs, model, opts: EventalignOptions, counts: d
                 f"{float(sc['scale']):.3f}\t0.000\t{float(sc['var']):.3f}\n")
     t6 = time.perf_counter()
     if keep is not None:
-        keep.update(scaling=scaled, realign=[t[2] for t in todo], alignments=alns)
+        keep.update(scaling=scaled, prep=prep, pairs=pairs, realign=[t[2] for t in todo],
+                    alignments=alns)
     for k, dt in (("events_s", t1 - t0), ("mom_s", t2 - t1), ("abea_s", t3 - t2),
                   ("scaling_s", t4 - t3), ("realign_s", t5 - t4), ("emit_s", t6 - t5)):
         stats[k] += dt

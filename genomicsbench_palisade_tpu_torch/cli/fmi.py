@@ -34,7 +34,7 @@ import numpy as np
 from .. import default_device
 from ..convert import fmi_index_from_numpy
 from ..index import fmi_index as FI
-from ..io.fastq import encode_reads, read_all
+from ..io.fastq import read_all, read_codes
 from ..io.native import fmi_search_native
 from ..ops import fmi_pipeline as FP
 
@@ -72,20 +72,21 @@ class Prepared:
 
 
 def prepare(index, reads_path: str, device=None, limit: int | None = None,
-            stats=None) -> Prepared:
+            stats=None, use_native: bool = True) -> Prepared:
     """Load (the index, a path or a built DeviceFmIndex, goes to `device`,
-    CUDA by default; the reads are parsed) and encode (A0 C1 G2 T3, others
-    4).  `stats` gets load_s and encode_s."""
+    CUDA by default) and read the reads encoded (A0 C1 G2 T3, others 4:
+    `io.fastq.read_codes`, the native parser unless `use_native=False`).
+    `stats` gets index_s (the index loaded and sent to `device`) and
+    reads_s (the reads parsed and encoded)."""
     device = default_device(device)
     t0 = time.perf_counter()
     didx = load_index(index) if isinstance(index, str) else index
     tindex = fmi_index_from_numpy(didx, device)
-    seqs = [s for _n, s, _q in read_all(reads_path, limit=limit)]
     t1 = time.perf_counter()
-    enc, rl = encode_reads(seqs)
+    enc, rl = read_codes(reads_path, limit, use_native)
     if stats is not None:
-        stats["load_s"] = t1 - t0
-        stats["encode_s"] = time.perf_counter() - t1
+        stats["index_s"] = t1 - t0
+        stats["reads_s"] = time.perf_counter() - t1
     return Prepared(tindex, enc, rl)
 
 
@@ -185,7 +186,7 @@ def main_host(args):
     packed occ rows) precede the timer, as the reference's encode and
     load_index precede its batch loop (fmi.cpp:141-177, 241-253)."""
     didx = load_index(args.index)
-    enc, rl = encode_reads([s for _n, s, _q in read_all(args.reads, limit=args.limit)])
+    enc, rl = read_codes(args.reads, args.limit)
     print(f"numReads = {len(rl)}, max_readlength = {int(rl.max())}, "
           f"min_readlength = {int(rl.min())}")
     threads = args.threads if args.threads > 1 else None

@@ -11,14 +11,15 @@ on stdout, the logger's DEBUG `Hash size:` / `Total k-mers` lines
 `Kernel time: %.3f sec` on stderr (kmer_cnt.cpp:284).  Runs on one
 device: CUDA unless `--device cpu`.
 
-Reads come from the port's `io.fastq.read_sequences` (the JAX CLI's path
-when its native parser is not built).  Above 192,000,000 bases the JAX CLI
-tries its native host counter first; the port has none (ROADMAP queue 1
-item 15: `count_kmers_host`, `parse_reads_native`,
-`minimizer_counts_native`), so it streams the reads through
-`ops.kmer.count_kmers_batched` on the device.  The minimizer index is the
-oracle's deque walk on the host, as the JAX CLI's without its native
-library.
+Reads come from the native parser straight to 2-bit codes
+(`io.native.parse_reads_native`, the JAX CLI's reader; non-ACGT is 3);
+`read_reads(..., use_native=False)` is the plain version, the Python
+reader's strings.  Above 192,000,000 bases the JAX CLI tries its native
+host counter first (`ops.kmer.count_kmers_host`); the port streams the
+reads through `ops.kmer.count_kmers_batched` on the device instead, so
+that the counter stays on the card (ROADMAP queue 3), and the host counter
+is there for callers who ask for it.  The minimizer index is the native
+deque walk (`ops.kmer.build_minimizer_index`), as the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -27,21 +28,32 @@ import argparse
 import sys
 import time
 
+import numpy as np
+
 from .. import default_device
 from ..config import load_flye_cfg
 from ..io.fastq import read_sequences
+from ..io.native import parse_reads_native
 from ..ops import kmer as K
 from ..utils.logger import Logger, get_memory_size, get_peak_rss
 
 BATCHED_BASES = 192_000_000  # read sets above this stream through the accumulator
 
 
-def read_reads(paths: str, min_read_length: int) -> list:
+def read_reads(paths: str, min_read_length: int, use_native: bool = True) -> list:
     """The reads of the comma-separated files strictly longer than
-    min_read_length, printing a `readsFile:` line a file."""
+    min_read_length, printing a `readsFile:` line a file: uint8 2-bit
+    code arrays (non-ACGT 3) from the native parser, or with
+    `use_native=False` the Python reader's strings."""
     reads = []
     for reads_file in paths.split(","):
         print(f"readsFile: {reads_file}")
+        if use_native:
+            codes, _quals, offsets, lengths = parse_reads_native(reads_file)
+            codes = np.minimum(codes, 3, out=codes).view(np.uint8)
+            reads.extend(codes[o : o + n] for o, n in zip(offsets.tolist(), lengths.tolist())
+                         if n > min_read_length)
+            continue
         for _name, seq, _q in read_sequences(reads_file):
             if len(seq) > min_read_length:
                 reads.append(seq)

@@ -1,5 +1,5 @@
 """poa driver: `python -m genomicsbench_palisade_tpu_torch.cli.poa -s <fasta>
-[-m 2 -x 4 -o 4,24 -e 2,1] [--oracle] [--engine auto|device] [--device cpu]`.
+[-m 2 -x 4 -o 4,24 -e 2,1] [--oracle] [--engine auto|host|device] [--device cpu]`.
 
 Mirrors genomicsbench_palisade_tpu/cli/poa.py, the reference driver's
 contract (benchmarks/poa/msa_spoa_omp.cpp:96-500): a FASTA in which a
@@ -9,10 +9,13 @@ the engine as oe1 = o1+e1 and oe2 = o2+e2, as the reference driver does),
 each window's consensus printed.  Windows are aligned in device lockstep
 (`ops.poa.msa_consensus_batch`) on one device: CUDA unless `--device cpu`.
 
-`--engine auto` and `device` run that aligner: the JAX CLI's `auto`
-prefers its native host engine, which the port does not have (ROADMAP
-queue 1 item 15), so `--engine host` is refused.  `--oracle` runs the
-port's oracle (`ops.oracle.poa.msa_consensus`) on the host.
+`--engine auto` and `device` run that aligner; `--engine host` runs the
+JAX package's native host engine (`ops.poa.msa_consensus_host`), with the
+same consensus.  The JAX CLI's `auto` picks the host engine whenever its
+native library is built, and the port always builds its own, so copying
+that rule would take the device aligner off the poa path: the port's
+`auto` is the device (ROADMAP queue 3).  `--oracle` runs the port's oracle
+(`ops.oracle.poa.msa_consensus`) on the host.
 """
 
 from __future__ import annotations
@@ -58,15 +61,13 @@ def main(argv=None):
     ap.add_argument("-e", type=str, default="2,1")
     ap.add_argument("--oracle", action="store_true", help="host-only path")
     ap.add_argument("--engine", choices=["auto", "host", "device"], default="auto",
-                    help="auto (= device) = the lockstep aligner on the device")
+                    help="auto (= device) = the lockstep aligner on the device, "
+                         "host = the native engine on the host")
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: cuda; 'cpu' runs the plain "
                          "PyTorch version)")
     args = ap.parse_args(argv)
-    if args.engine == "host":
-        ap.error("the native host engine (--engine host) is not ported yet "
-                 "(ROADMAP queue 1 item 15); --engine device runs the aligner on the device")
-    device = default_device(args.device)
+    device = default_device(args.device) if args.engine != "host" else None
 
     o1, _, o2 = args.o.partition(",")
     e1, _, e2 = args.e.partition(",")
@@ -85,6 +86,10 @@ def main(argv=None):
 
         p = PoaParams(*params)
         consensus = [msa_consensus(b, p) for b in batches]
+    elif args.engine == "host":
+        from ..ops.poa import msa_consensus_host
+
+        consensus = msa_consensus_host(batches, params, timings=tm)
     else:
         from ..ops.poa import msa_consensus_batch
 

@@ -1,10 +1,12 @@
 """Minimal BAM reader and writer (BGZF + BAM records, no htslib).
 
-The port's own copy of genomicsbench_palisade_tpu/io/bam.py, its
-pure-Python paths: whole-file reads (`read_bam`), the streaming BGZF
-reader and `.bai` region queries (`read_bam_region`, f5c's -w and
-htslib's sam_itr_querys), and the writers (`write_bam`, `build_bai`).
-The native C++ decoders of the JAX package are not ported.
+The port's own copy of genomicsbench_palisade_tpu/io/bam.py: whole-file
+reads (`read_bam`), the streaming BGZF reader and `.bai` region queries
+(`read_bam_region`, f5c's -w and htslib's sam_itr_querys), and the
+writers (`write_bam`, `build_bai`).  As in the JAX module, a read that
+asks for no tags decodes natively (native/bamio.cpp: `read_bam_native`,
+and `read_bam_region_native` over the `.bai` window); the pure-Python
+decoders read the tags, and stay as the plain version (`use_native=False`).
 
 BAM spec: SAM v1 section 4.  BGZF = concatenated gzip members with a BSIZE
 extra field; each inflates to <=64 KiB.
@@ -101,8 +103,29 @@ def _parse_tags(buf: bytes) -> dict:
     return tags
 
 
-def read_bam(path, parse_tags: bool = False):
-    """Returns (references [(name, length)], list[BamRecord])."""
+def _records_from_cols(cols) -> list:
+    """BamRecords (no tags) of the native decoders' columnar arrays."""
+    no, co, so = (cols[k].tolist() for k in ("name_off", "cigar_off", "seq_off"))
+    names, seq, qual = cols["names"], cols["seq_nt16"], cols["qual"]
+    ops = [CIGAR_OPS[c] for c in (cols["cigar"] & 0xF).tolist()]
+    lens = (cols["cigar"] >> 4).tolist()
+    return [BamRecord(names[no[i] : no[i + 1]].decode(), flag, ref_id, pos, mapq,
+                      list(zip(ops[co[i] : co[i + 1]], lens[co[i] : co[i + 1]])),
+                      seq[so[i] : so[i + 1]], qual[so[i] : so[i + 1]], {})
+            for i, (flag, ref_id, pos, mapq) in enumerate(zip(
+                cols["flag"].tolist(), cols["ref_id"].tolist(), cols["pos"].tolist(),
+                cols["mapq"].tolist()))]
+
+
+def read_bam(path, parse_tags: bool = False, use_native: bool = True):
+    """Returns (references [(name, length)], list[BamRecord]).  Without
+    tags the native decoder reads the file; `use_native=False` (or
+    `parse_tags`) reads it in Python."""
+    if use_native and not parse_tags:
+        from .native import read_bam_native
+
+        refs, cols = read_bam_native(path)
+        return refs, _records_from_cols(cols)
     with open(path, "rb") as f:
         raw = f.read()
     data = bgzf_decompress(raw)
@@ -417,9 +440,34 @@ def read_bam_header_stream(stream: BgzfStream):
     return refs
 
 
+def _read_bam_region_via_native(path, chrom, beg, end, index):
+    """read_bam_region through the native region decoder (streaming BGZF
+    from the .bai window, the record parse and overlap filter in C): the
+    Python path's records."""
+    from .native import read_bam_region_native
+
+    with open(path, "rb") as f:
+        refs = read_bam_header_stream(BgzfStream(f))
+    names = [r[0] for r in refs]
+    if chrom not in names:
+        return refs, []
+    ref_id = names.index(chrom)
+    bins, ioffsets = index[ref_id]
+    chunks = [c for b in _reg2bins(beg, end) for c in bins.get(b, [])]
+    if not chunks:
+        return refs, []
+    min_off = min(c[0] for c in chunks)
+    win = beg >> 14
+    if win < len(ioffsets) and ioffsets[win] > 0:
+        min_off = max(min_off, int(ioffsets[win]))
+    max_off = max(c[1] for c in chunks)
+    cols = read_bam_region_native(path, int(min_off), int(max_off), ref_id, beg, end)
+    return refs, _records_from_cols(cols)
+
+
 def read_bam_region(path: str, chrom: str, beg: int, end: int,
                     parse_tags: bool = False, bai_path: str | None = None,
-                    index=None):
+                    index=None, use_native: bool = True):
     """Records overlapping [beg, end) on `chrom` via the .bai index.
 
     Streams BGZF blocks from the index lower bound and stops at the
@@ -427,11 +475,14 @@ def read_bam_region(path: str, chrom: str, beg: int, end: int,
     so memory and IO are proportional to the region, not the file.
     `index`: a preloaded read_bai() result — callers iterating many
     chunks of one BAM (cli/pileup) pass it to skip re-parsing the .bai
-    per query."""
+    per query.  Without tags the native decoder reads the window;
+    `use_native=False` (or `parse_tags`) reads it in Python."""
     if index is None:
         if bai_path is None:
             bai_path = path + ".bai"
         index = read_bai(bai_path)
+    if use_native and not parse_tags:
+        return _read_bam_region_via_native(path, chrom, beg, end, index)
     with open(path, "rb") as f:
         stream = BgzfStream(f)
         refs = read_bam_header_stream(stream)

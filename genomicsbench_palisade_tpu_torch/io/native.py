@@ -1,12 +1,27 @@
 """ctypes bindings over the port's own build of native/*.cpp.
 
-The port's copy of genomicsbench_palisade_tpu/io/native.py for the entry
-points its drivers run: `sais` (the index builder's suffix array),
-`read_bam_region_native` (the `.bai`-bounded BAM decode),
-`dbg_window_native` (the dbg driver's window engine), the three pileup
-engines (`pileup_events_native`, `pileup_events_cols_native`,
-`pileup_matrix_native`) and `fmi_search_native` (the fmi CLI's host
-engine), with the JAX module's signatures and return values.
+The port's copy of genomicsbench_palisade_tpu/io/native.py, with the JAX
+module's names, signatures and return values:
+
+- readers: `parse_reads_native` (FASTA/FASTQ straight to codes),
+  `parse_pairs_struct_native` and `sub48_native` (the bsw pair file),
+  `read_bam_native` and `read_bam_region_native` (BAM decode);
+- nanopore: `detect_events_native` (scrappie's event detector),
+  `eventalign_realign_native` and `eventalign_emit_native` (f5c's
+  eventalign realign and TSV), `abea_traceback_native` (the abea walk and
+  QC on the host), `ctc_beam_native` (bonito's CTC prefix beam);
+- `kmer_count_native` (Flye's counter on the host) and
+  `minimizer_counts_native` (its minimizer walk);
+- `sais` (the index builder's suffix array), `dbg_window_native` (the dbg
+  driver's window engine), the three pileup engines
+  (`pileup_events_native`, `pileup_events_cols_native`,
+  `pileup_matrix_native`) and `fmi_search_native` (the fmi CLI's host
+  engine).
+
+`_lib()` also types the entry points that the JAX package binds in the
+modules that call them: `gt_mom_scalings` and `gt_eventalign_scaling`
+(ops/eventalign.py), `gt_abea_align` (ops/abea.py), `gt_phmm_f64`
+(ops/phmm_f64.py) and the poa graph and aligner (ops/poa.py).
 
 The library is built from native/ at first use by
 `utils.native_build` (into build/native/, never native/ itself).  Unlike
@@ -75,6 +90,73 @@ def _lib() -> ctypes.CDLL:
     lib.gt_alloc_pages.restype = _P
     lib.gt_alloc_pages.argtypes = [_I64, ctypes.c_int]
     lib.gt_free_pages.argtypes = [_P, _I64]
+    # readers
+    lib.gt_parse_reads.restype = _P
+    lib.gt_parse_reads.argtypes = [ctypes.c_char_p, _I64]
+    for fn in ("gt_num_reads", "gt_total_bases", "gt_num_quals"):
+        getattr(lib, fn).restype = _I64
+        getattr(lib, fn).argtypes = [_P]
+    lib.gt_copy_out.argtypes = [_P] * 5
+    lib.gt_free_reads.argtypes = [_P]
+    lib.gt_pairs_count.restype = _I64
+    lib.gt_pairs_count.argtypes = [_P, _I64]
+    lib.gt_pairs_parse.argtypes = [_P, _I64, _I64] + [_P] * 5
+    lib.gt_sub48.argtypes = [_P, _I64, _P]
+    lib.gt_bam_open.restype = _P
+    lib.gt_bam_open.argtypes = [ctypes.c_char_p]
+    for fn in ("gt_bam_n_refs", "gt_bam_refnames_bytes"):
+        getattr(lib, fn).restype = _I64
+        getattr(lib, fn).argtypes = [_P]
+    lib.gt_bam_copy_refs.argtypes = [_P] * 3
+    # nanopore
+    lib.gt_detect_events.restype = _I64
+    lib.gt_detect_events.argtypes = [_P, _I64] + [_P] * 4 + [_I64]
+    lib.gt_mom_scalings.argtypes = [_P, _I64, _P, _I64, _P, _P]
+    lib.gt_eventalign_scaling.restype = ctypes.c_int32
+    lib.gt_eventalign_scaling.argtypes = [_P, _I64, _P, _P, _I64] + [_P] * 6
+    lib.gt_eventalign_realign.restype = _I64
+    lib.gt_eventalign_realign.argtypes = (
+        [_P, _I64, _I64] + [_P] * 3 + [_I64, ctypes.c_int32, _I64, _P, _I64]
+        + [ctypes.c_float] * 4 + [_P] * 4 + [_I64, ctypes.c_double] + [_P] * 3 + [_I64])
+    lib.gt_eventalign_emit.restype = _I64
+    lib.gt_eventalign_emit.argtypes = ([_I64, _P, _P, ctypes.c_char_p, ctypes.c_char_p, _I64]
+                                       + [_P] * 6 + [ctypes.c_char_p] * 2 + [_P, _I64])
+    lib.gt_abea_align.restype = _I64
+    lib.gt_abea_align.argtypes = ([_P, _I64, _P, _I64] + [_P] * 3
+                                  + [ctypes.c_float, ctypes.c_float, ctypes.c_int32, _P, _P, _I64])
+    lib.gt_abea_traceback.restype = ctypes.c_int
+    lib.gt_abea_traceback.argtypes = ([_I64] + [_P] * 12 + [_I64] * 4 + [ctypes.c_double]
+                                      + [_P] * 2 + [_I64])
+    lib.gt_ctc_beam.restype = _I64
+    lib.gt_ctc_beam.argtypes = [_P, _I64, _I64, _I64, ctypes.c_double, _P, _I64]
+    # kmer
+    lib.gt_kmer_count.restype = ctypes.c_int32
+    lib.gt_kmer_count.argtypes = [_P] * 3 + [_I64] + [ctypes.c_int32] * 4 + [_P] * 3
+    lib.gt_minimizers_count.restype = _P
+    lib.gt_minimizers_count.argtypes = [_P] * 3 + [_I64] * 4
+    lib.gt_minimizers_size.restype = _I64
+    lib.gt_minimizers_size.argtypes = [_P]
+    lib.gt_minimizers_copy.argtypes = [_P] * 3
+    lib.gt_minimizers_free.argtypes = [_P]
+    # phmm's double pass
+    lib.gt_phmm_f64.argtypes = [_P] * 8 + [_I64] * 3 + [_P] * 2 + [ctypes.c_double, _P]
+    # poa's graph and aligner
+    lib.gt_poa_new.restype = _P
+    lib.gt_poa_free.argtypes = [_P]
+    lib.gt_poa_add_alignment.argtypes = [_P, _P, _P, _I64, ctypes.c_char_p, _I64]
+    for fn in ("gt_poa_n_nodes", "gt_poa_n_edges"):
+        getattr(lib, fn).restype = _I64
+        getattr(lib, fn).argtypes = [_P]
+    lib.gt_poa_consensus.restype = _I64
+    lib.gt_poa_consensus.argtypes = [_P, _P, _I64]
+    lib.gt_poa_arrays.restype = ctypes.c_int32
+    lib.gt_poa_arrays.argtypes = [_P, _I64, _I64] + [_P] * 6
+    lib.gt_poa_export.argtypes = [_P] * 6
+    lib.gt_poa_align.restype = _I64
+    lib.gt_poa_align.argtypes = [_P, ctypes.c_char_p, _I64] + [ctypes.c_int32] * 7 + [_P, _P, _I64]
+    lib.gt_poa_msa_window.restype = _I64
+    lib.gt_poa_msa_window.argtypes = ([_P] * 3 + [_I64] + [ctypes.c_int32] * 6
+                                      + [_P, _I64, _P])
     return lib
 
 
@@ -105,6 +187,31 @@ def sais(codes: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
     return sa
 
 
+def _bam_cols(lib, h) -> dict:
+    """A decoded BAM handle's records as the columnar dict of
+    read_bam_native (gt_bam_copy_out)."""
+    n = lib.gt_bam_n_records(h)
+    seq_bytes = lib.gt_bam_seq_bytes(h)
+    cols = {
+        "ref_id": np.empty(n, np.int32),
+        "pos": np.empty(n, np.int32),
+        "mapq": np.empty(n, np.int32),
+        "flag": np.empty(n, np.int32),
+        "name_off": np.empty(n + 1, np.int64),
+        "cigar_off": np.empty(n + 1, np.int64),
+        "seq_off": np.empty(n + 1, np.int64),
+        "cigar": np.empty(lib.gt_bam_cigar_words(h), np.uint32),
+        "seq_nt16": np.empty(seq_bytes, np.uint8),
+        "qual": np.empty(seq_bytes, np.uint8),
+    }
+    names = ctypes.create_string_buffer(int(lib.gt_bam_names_bytes(h)))
+    lib.gt_bam_copy_out(h, *(_p(cols[k]) for k in ("ref_id", "pos", "mapq", "flag", "name_off")),
+                        names, *(_p(cols[k]) for k in ("cigar_off", "cigar", "seq_off",
+                                                       "seq_nt16", "qual")))
+    cols["names"] = names.raw
+    return cols
+
+
 def read_bam_region_native(path: str, voff_lo: int, voff_hi: int, ref_id: int, beg: int,
                            end: int, filter_flags: int = 0, min_mapq: int = 0):
     """Native `.bai`-bounded region decode into columnar arrays.
@@ -123,28 +230,9 @@ def read_bam_region_native(path: str, voff_lo: int, voff_hi: int, ref_id: int, b
     if not h:
         raise OSError(f"native BAM decode failed for {path}")
     try:
-        n = lib.gt_bam_n_records(h)
-        seq_bytes = lib.gt_bam_seq_bytes(h)
-        cols = {
-            "ref_id": np.empty(n, np.int32),
-            "pos": np.empty(n, np.int32),
-            "mapq": np.empty(n, np.int32),
-            "flag": np.empty(n, np.int32),
-            "name_off": np.empty(n + 1, np.int64),
-            "cigar_off": np.empty(n + 1, np.int64),
-            "seq_off": np.empty(n + 1, np.int64),
-            "cigar": np.empty(lib.gt_bam_cigar_words(h), np.uint32),
-            "seq_nt16": np.empty(seq_bytes, np.uint8),
-            "qual": np.empty(seq_bytes, np.uint8),
-            "span": np.empty(n, np.int32),
-        }
-        names = ctypes.create_string_buffer(int(lib.gt_bam_names_bytes(h)))
-        lib.gt_bam_copy_out(h, *(_p(cols[k]) for k in ("ref_id", "pos", "mapq", "flag",
-                                                       "name_off")),
-                            names, *(_p(cols[k]) for k in ("cigar_off", "cigar", "seq_off",
-                                                           "seq_nt16", "qual")))
+        cols = _bam_cols(lib, h)
+        cols["span"] = np.empty(len(cols["pos"]), np.int32)
         lib.gt_bam_copy_span(h, _p(cols["span"]))
-        cols["names"] = names.raw
     finally:
         lib.gt_bam_free(h)
     return cols
@@ -415,3 +503,234 @@ def fmi_search_native(didx, enc_codes: np.ndarray, lengths: np.ndarray, min_seed
     finally:
         lib.gt_fmi_free(h)
     return out, int(n1), int(n2), int(n3)
+
+
+def parse_reads_native(path: str, limit: int = -1):
+    """FASTA/FASTQ (plain or gzip) straight to codes (native/fastio.cpp):
+    (codes int8[total] (A0 C1 G2 T3 in either case, any other byte 4),
+    quals int8[total] (phred, FASTQ only) or None, offsets int64[N],
+    lengths int32[N]).  `limit` >= 0 reads that many records at most.
+    Raises when the file cannot be read."""
+    lib = _lib()
+    h = lib.gt_parse_reads(os.fsencode(path), limit)
+    if not h:
+        raise OSError(f"native FASTA/FASTQ parse failed for {path}")
+    try:
+        n, total, nq = lib.gt_num_reads(h), lib.gt_total_bases(h), lib.gt_num_quals(h)
+        codes = np.empty(total, np.int8)
+        quals = np.empty(nq, np.int8) if nq else None
+        offsets = np.empty(n, np.int64)
+        lengths = np.empty(n, np.int32)
+        lib.gt_copy_out(h, _p(codes), _p(quals) if nq else None, _p(offsets), _p(lengths))
+    finally:
+        lib.gt_free_reads(h)
+    return codes, quals, offsets, lengths
+
+
+def sub48_native(arr: np.ndarray):
+    """int8(arr) - 48 in one native pass."""
+    arr = np.ascontiguousarray(arr, np.uint8)
+    out = np.empty(arr.size, np.int8)
+    _lib().gt_sub48(_p(arr), arr.size, _p(out))
+    return out
+
+
+def parse_pairs_struct_native(buf: np.ndarray):
+    """One-pass structural parse of the bsw 3-line pair format
+    (native/pairsio.cpp): buf is the file's bytes (uint8); returns (t_off
+    int64, t_len int32, q_off int64, q_len int32, h0 int32), offsets into
+    buf."""
+    lib = _lib()
+    buf = np.ascontiguousarray(buf, np.uint8)
+    n = lib.gt_pairs_count(_p(buf), buf.size)
+    t_off, q_off = np.empty(n, np.int64), np.empty(n, np.int64)
+    t_len, q_len, h0 = np.empty(n, np.int32), np.empty(n, np.int32), np.empty(n, np.int32)
+    lib.gt_pairs_parse(_p(buf), buf.size, n, _p(t_off), _p(t_len), _p(q_off), _p(q_len),
+                       _p(h0))
+    return t_off, t_len, q_off, q_len, h0
+
+
+def kmer_count_native(codes: np.ndarray, offs: np.ndarray, lens: np.ndarray, k: int,
+                      min_len: int, saturation: int, log2_slots: int):
+    """Flye's k-mer counter on the host (native/kmercnt.cpp): (total_kmers,
+    hash_size, occurrences), or None when a table of 2^33 slots still
+    fills past 90% or cannot be mapped (the JAX module's None; its caller
+    then streams through the device accumulator).  Retries with a doubled
+    table when the 90% load cap trips."""
+    lib = _lib()
+    codes = np.ascontiguousarray(codes, np.int8)
+    offs = np.ascontiguousarray(offs, np.int64)
+    lens = np.ascontiguousarray(lens, np.int32)
+    out = np.zeros(3, np.int64)
+    while log2_slots < 34:
+        rc = lib.gt_kmer_count(_p(codes), _p(offs), _p(lens), len(lens), k, min_len, saturation,
+                               log2_slots, _p(out[0:]), _p(out[1:]), _p(out[2:]))
+        if rc == 0:
+            return int(out[0]), int(out[1]), int(out[2])
+        if rc != 1:  # rc 2: the table's mmap failed, a larger retry cannot help
+            return None
+        log2_slots += 1  # rc 1: the 90% load cap tripped, grow and retry
+    return None
+
+
+def read_bam_native(path: str):
+    """Native BGZF and BAM decode of a whole file into columnar arrays:
+    (refs [(name, length)], cols) where cols has ref_id, pos, mapq, flag
+    (int32[N]); name_off/cigar_off/seq_off (int64[N+1] exclusive
+    prefixes); names (bytes); cigar (uint32 raw words); seq_nt16, qual
+    (uint8).  Raises when the file cannot be read."""
+    lib = _lib()
+    h = lib.gt_bam_open(os.fsencode(path))
+    if not h:
+        raise OSError(f"native BAM decode failed for {path}")
+    try:
+        n_refs = lib.gt_bam_n_refs(h)
+        rn = ctypes.create_string_buffer(int(lib.gt_bam_refnames_bytes(h)))
+        rlens = np.empty(n_refs, np.int64)
+        lib.gt_bam_copy_refs(h, rn, _p(rlens))
+        refs = list(zip(rn.raw.decode().split("\n")[:n_refs], rlens.tolist()))
+        cols = _bam_cols(lib, h)
+    finally:
+        lib.gt_bam_free(h)
+    return refs, cols
+
+
+def detect_events_native(raw: np.ndarray):
+    """Scrappie's event detection of one raw signal (native/events.cpp; its
+    contract is ops.oracle.events.detect_events): the oracle's structured
+    array (start, length, mean, stdv)."""
+    lib = _lib()
+    raw = np.ascontiguousarray(raw, np.float32)
+    cap = max(len(raw), 16)
+    start = np.empty(cap, np.uint64)
+    length, mean, stdv = (np.empty(cap, np.float32) for _ in range(3))
+    n = lib.gt_detect_events(_p(raw), len(raw), _p(start), _p(length), _p(mean), _p(stdv), cap)
+    ev = np.zeros(n, dtype=[("start", np.uint64), ("length", np.float32),
+                            ("mean", np.float32), ("stdv", np.float32)])
+    ev["start"], ev["length"], ev["mean"], ev["stdv"] = start[:n], length[:n], mean[:n], stdv[:n]
+    return ev
+
+
+def abea_traceback_native(trace, bll_e, lv, ranks, events, model, scales, shifts, ne, nk, bw,
+                          lp_trim):
+    """The abea traceback and QC of a group of reads on the host
+    (native/abea_tb.cpp, the JAX ops/abea._traceback's walk bit for bit).
+    Returns per read its [(kmer_idx, event_idx)], or [] when QC drops it.
+
+    trace: [G, nb_max, bw] uint8 (rows 0/1 seeded); bll_e: [G, nb_max]
+    int64; lv: [G, nb_max-2] f64 (the last k-mer's cell of bands 2..);
+    ranks: [G, nk_max] int32; events: [G, ne_max] f32; ne/nk: [G] int64."""
+    lib = _lib()
+    g_n, nb_max, bw_a = trace.shape
+    if bw_a != bw:
+        raise ValueError(f"trace planes are {bw_a} wide, not {bw}")
+    trace = np.ascontiguousarray(trace, np.uint8)
+    bll_e = np.ascontiguousarray(bll_e, np.int64)
+    lv = np.ascontiguousarray(lv, np.float64)
+    ranks = np.ascontiguousarray(ranks, np.int32)
+    events = np.ascontiguousarray(events, np.float32)
+    lm, ls, lls = (np.ascontiguousarray(model[k], np.float32)
+                   for k in ("level_mean", "level_stdv", "level_log_stdv"))
+    sc = np.ascontiguousarray(scales, np.float32)
+    sh = np.ascontiguousarray(shifts, np.float32)
+    ne = np.ascontiguousarray(ne, np.int64)
+    nk = np.ascontiguousarray(nk, np.int64)
+    cap = int(ne.max() + nk.max())
+    out_pairs = np.empty((g_n, 2 * cap), np.int32)
+    out_n = np.empty(g_n, np.int64)
+    rc = lib.gt_abea_traceback(g_n, _p(trace), _p(bll_e), _p(lv), _p(ranks), _p(events), _p(lm),
+                               _p(ls), _p(lls), _p(sc), _p(sh), _p(ne), _p(nk), nb_max, bw,
+                               ranks.shape[1], events.shape[1], float(lp_trim), _p(out_pairs),
+                               _p(out_n), cap)
+    if rc != 0:
+        raise RuntimeError(f"gt_abea_traceback failed rc={rc}")
+    results = []
+    for g in range(g_n):
+        pr = out_pairs[g, : 2 * int(out_n[g])].reshape(-1, 2)
+        results.append(list(zip(pr[:, 0].tolist(), pr[:, 1].tolist())))
+    return results
+
+
+def ctc_beam_native(log_probs, beam_size: int, threshold: float):
+    """CTC prefix beam search (native/ctc_beam.cpp; its contract is the
+    Python walk of models.bonito.beam_search_decode): the label list."""
+    lib = _lib()
+    lp = np.ascontiguousarray(log_probs, np.float32)
+    t_len, n_class = lp.shape
+    cap = t_len + 1
+    out = np.empty(cap, np.int32)
+    n = lib.gt_ctc_beam(_p(lp), t_len, n_class, beam_size, float(threshold), _p(out), cap)
+    if n < 0:
+        raise RuntimeError("gt_ctc_beam output overflow")
+    return out[:n].tolist()
+
+
+def minimizer_counts_native(reads_codes, k: int, window: int, min_read_length: int):
+    """Flye's minimizer counts (native/minimizers.cpp; its contract is
+    ops.oracle.kmer.yield_minimizers and a Counter of canonical codes).
+    reads_codes: a list of uint8 2-bit code arrays.  Returns
+    {canonical_code: count}."""
+    lib = _lib()
+    lengths = np.array([len(c) for c in reads_codes], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
+    flat = (np.concatenate(reads_codes).astype(np.uint8) if len(reads_codes)
+            else np.zeros(0, np.uint8))
+    h = lib.gt_minimizers_count(_p(flat), _p(offsets), _p(lengths), len(reads_codes), k, window,
+                                min_read_length)
+    try:
+        n = lib.gt_minimizers_size(h)
+        keys = np.empty(n, np.uint64)
+        counts = np.empty(n, np.int64)
+        lib.gt_minimizers_copy(h, _p(keys), _p(counts))
+    finally:
+        lib.gt_minimizers_free(h)
+    return dict(zip(keys.tolist(), counts.tolist()))
+
+
+def eventalign_realign_native(ref_codes, ref_offset, segments, rc, read_length, ev_mean, sc,
+                              model, b2e, events_per_base):
+    """f5c's eventalign realign of one read (native/eventalign.cpp; its
+    contract is ops.oracle.eventalign.align_read_to_ref).  `segments` are
+    the trimmed [(ref_pos, read_pos)] lists of the cigar walk.  Returns
+    (ref_pos int32, event_idx int32, states bytes of b'M'/b'B')."""
+    lib = _lib()
+    ref_codes = np.ascontiguousarray(ref_codes, np.uint8)
+    pair_ref = np.ascontiguousarray([p[0] for seg in segments for p in seg], np.int32)
+    pair_read = np.ascontiguousarray([p[1] for seg in segments for p in seg], np.int32)
+    seg_off = np.zeros(len(segments) + 1, np.int64)
+    np.cumsum([len(s) for s in segments], out=seg_off[1:])
+    ev_mean = np.ascontiguousarray(ev_mean, np.float32)
+    lm, ls, lls = (np.ascontiguousarray(model[k], np.float32)
+                   for k in ("level_mean", "level_stdv", "level_log_stdv"))
+    b2e = np.ascontiguousarray(b2e, np.int32)
+    cap = int(2 * len(ev_mean) + 1024)
+    out_rp, out_ei = np.empty(cap, np.int32), np.empty(cap, np.int32)
+    out_st = np.empty(cap, np.uint8)
+    n = lib.gt_eventalign_realign(
+        _p(ref_codes), len(ref_codes), int(ref_offset), _p(pair_ref), _p(pair_read),
+        _p(seg_off), len(segments), 1 if rc else 0, int(read_length), _p(ev_mean), len(ev_mean),
+        float(sc["shift"]), float(sc["scale"]), float(sc["var"]), float(sc["log_var"]),
+        _p(lm), _p(ls), _p(lls), _p(b2e), len(b2e), float(events_per_base),
+        _p(out_rp), _p(out_ei), _p(out_st), cap)
+    if n < 0:
+        raise RuntimeError("gt_eventalign_realign: output capacity exceeded")
+    return out_rp[:n].copy(), out_ei[:n].copy(), out_st[:n].tobytes()
+
+
+def eventalign_emit_native(rp, ei, kblob, mkblob, kmer_size, em, es, ed, mm, ms, sl, ref_name,
+                           who):
+    """A read's eventalign TSV rows as one str (native/eventalign.cpp
+    gt_eventalign_emit: the f-string rows' bytes, -nan included)."""
+    lib = _lib()
+    n = int(rp.shape[0])
+    rp = np.ascontiguousarray(rp, np.int32)
+    ei = np.ascontiguousarray(ei, np.int32)
+    cols = [np.ascontiguousarray(a, np.float64) for a in (em, es, ed, mm, ms, sl)]
+    rn, wh = ref_name.encode(), who.encode()
+    cap = n * (320 + 2 * kmer_size + len(rn) + len(wh)) + 4096
+    out = np.empty(cap, np.uint8)
+    wrote = lib.gt_eventalign_emit(n, _p(rp), _p(ei), kblob, mkblob, int(kmer_size),
+                                   *(_p(a) for a in cols), rn, wh, _p(out), cap)
+    if wrote < 0:
+        raise RuntimeError("gt_eventalign_emit: output capacity exceeded")
+    return out[:wrote].tobytes().decode()

@@ -6,14 +6,21 @@ Format (benchmarks/bsw/main_banded.cpp:148-202 loadPairs): 3-line records
     <query string>
 Characters are decoded by subtracting 48 ('0').
 
-The numpy parse of genomicsbench_palisade_tpu/io/pairs.py.  Offsets into
-the decoded buffer are int64 throughout: at the reference's bsw_large
-scale (10,606,460 pairs, ~3.8 GB) they pass 2^31.
+The port of genomicsbench_palisade_tpu/io/pairs.py.  `parse_pairs_soa`
+runs the JAX module's native scan by default (native/pairsio.cpp: one
+pass over the mapped file, then one fused "minus 48"); its numpy parse
+stays as the plain version (`use_native=False`).  Offsets into the
+decoded buffer are int64 throughout: at the reference's bsw_large scale
+(10,606,460 pairs, ~3.8 GB) they pass 2^31.
 """
 
 from __future__ import annotations
 
+import mmap
+
 import numpy as np
+
+from . import native
 
 
 def _read_bytes(path_or_file) -> np.ndarray:
@@ -60,15 +67,40 @@ def parse_pairs(path_or_file, max_pairs: int | None = None):
             for j in range(0, 3 * n, 3)]
 
 
-def parse_pairs_soa(path_or_file, max_pairs: int | None = None):
+def _parse_native(arr, max_pairs):
+    t_off, t_len, q_off, q_len, h0 = native.parse_pairs_struct_native(arr)
+    n = len(h0) if max_pairs is None else min(len(h0), max_pairs)
+    return {"codes": native.sub48_native(arr), "t_off": t_off[:n], "t_len": t_len[:n],
+            "q_off": q_off[:n], "q_len": q_len[:n], "h0": h0[:n]}
+
+
+def parse_pairs_soa(path_or_file, max_pairs: int | None = None, use_native: bool = True):
     """Struct-of-arrays parse of the same format: no per-record Python.
 
     Returns a dict with the whole-file decoded code buffer plus per-pair
     offset/length/h0 arrays:
         codes [bytes] int8, q_off/t_off int64, q_len/t_len int32, h0 int32
-    The h0 field (an optional '-' then digits, up to a space or the line
-    end) is parsed with one vectorized gather per digit position.
+    By default the native scan reads the file mapped in place (no copy of
+    its bytes) and writes the codes in one pass.  `use_native=False` is the
+    numpy parse: the h0 field (an optional '-' then digits, up to a space
+    or the line end) by one vectorized gather per digit position.
     """
+    if use_native:
+        native._lib()  # a failed build raises here, before the file is mapped
+        if hasattr(path_or_file, "read"):
+            return _parse_native(_read_bytes(path_or_file), max_pairs)
+        with open(path_or_file, "rb") as f:
+            try:
+                mm = mmap.mmap(f.fileno(), 0, prot=mmap.PROT_READ)
+            except ValueError:  # an empty file cannot be mapped
+                return _parse_native(np.zeros(0, np.uint8), max_pairs)
+        try:
+            arr = np.frombuffer(mm, np.uint8)
+            out = _parse_native(arr, max_pairs)
+            del arr
+        finally:
+            mm.close()
+        return out
     arr = _read_bytes(path_or_file)
     starts, nl = _lines(arr)
     n = len(nl) // 3

@@ -19,9 +19,10 @@ log_softmax in float32; at float32 everything runs with TF32 off.
 
 The host side (`norm_by_noisiest_section`, `chunk_signal`, `stitch`,
 `viterbi_decode`, `beam_search_decode`) follows basecall.py:296-398 and
-the JAX module.  The CTC beam search is the JAX module's Python spec path
-(the same construction order and tie-breaks); the JAX package's native
-beam (`ctc_beam_native`) is not ported (ROADMAP queue 1 item 15).
+the JAX module.  The CTC beam search runs the JAX package's native beam
+(`io.native.ctc_beam_native`, native/ctc_beam.cpp), as the JAX module
+does; its Python spec walk (the same construction order and tie-breaks)
+is the plain version (`use_native=False`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..io.native import ctc_beam_native
 from ..utils.precision import ieee_fp32
 
 DEFAULT_ALPHABET = "NACGT"
@@ -263,14 +265,19 @@ def viterbi_decode(log_probs, alphabet=DEFAULT_ALPHABET):
     return np.frombuffer(alphabet.encode(), np.uint8)[path[keep]].tobytes().decode()
 
 
-def beam_search_decode(log_probs, alphabet=DEFAULT_ALPHABET, beam_size=5, threshold=1e-3):
+def beam_search_decode(log_probs, alphabet=DEFAULT_ALPHABET, beam_size=5, threshold=1e-3,
+                       use_native: bool = True):
     """CTC prefix beam search (the reference's fast_ctc_decode beam_search
     path, basecall.py:100-105, default beamsize=5 threshold=1e-3): label 0
     is the blank, per-step classes below `threshold` posterior are pruned,
-    beams keep (p_blank, p_nonblank) mass per collapsed prefix.  The JAX
-    module's Python walk, step for step, in float64."""
+    beams keep (p_blank, p_nonblank) mass per collapsed prefix.  The native
+    beam, or with `use_native=False` the JAX module's Python walk, step for
+    step, in float64."""
     if isinstance(log_probs, torch.Tensor):
         log_probs = log_probs.cpu().numpy()
+    if use_native:
+        labels = ctc_beam_native(np.asarray(log_probs, np.float32), beam_size, threshold)
+        return "".join(alphabet[c] for c in labels)
     probs = np.exp(np.asarray(log_probs, np.float64))
     beams = {(): (1.0, 0.0)}
     for p_t in probs.tolist():

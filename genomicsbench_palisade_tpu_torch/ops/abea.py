@@ -48,6 +48,13 @@ through compensated f32 sums instead (the TPU has no f64).
 The decode and QC (`decode`) drop a read whose average emission is below
 -5, whose walk does not span k-mers 0 to nk - 1, or whose longest skip
 run is above 50 (postalign, align.c:443-548).
+
+The JAX package's native host engines stand beside the kernels:
+`align_events_batch_native` (native/abeafill.cpp: fill, traceback and QC
+a read on the host; `align_events_batch(..., use_native=True)`) and
+`traceback_host` (native/abea_tb.cpp: the walk and QC of the fill's
+outputs, abea_walk plus decode).  The kernels stay the default and the
+CLI's route (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ import torch
 
 from .. import default_device
 from ..convert import abea_batch_from_numpy, abea_model_from_numpy
+from ..io import native
 from . import abea_cuda
 from .oracle.abea import ALN_BANDWIDTH, FROM_D, FROM_L, FROM_U, KMER_SIZE
 
@@ -324,8 +332,76 @@ def decode(band_off, walk_np) -> list:
     return out
 
 
+def traceback_host(sequences, event_means_list, model, scales, shifts, fill) -> list:
+    """abea_walk and decode of a fill on the host (native/abea_tb.cpp, the
+    JAX package's `_traceback_batch`): per read its alignment or [], in
+    input order, as align_events_batch gives them.  `fill`: the fill's
+    outputs (tensors or numpy) for prepare_batch(sequences, ...); its flat
+    rows go into the engine's [reads, nb_max, 100] planes."""
+    idx = [i for i, (seq, ev) in enumerate(zip(sequences, event_means_list))
+           if len(seq) - KMER_SIZE + 1 >= 1 and len(ev) >= 1]
+    results = [[] for _ in sequences]
+    if not idx:
+        return results
+    trace, bll_e, last_val = (np.asarray(fill[k].cpu() if isinstance(fill[k], torch.Tensor)
+                                         else fill[k]) for k in ("trace", "bll_e", "last_val"))
+    ne = np.array([len(event_means_list[i]) for i in idx], np.int64)
+    nk = np.array([len(sequences[i]) - KMER_SIZE + 1 for i in idx], np.int64)
+    nb = ne + nk + 2
+    band_off = np.concatenate(([0], np.cumsum(nb)[:-1]))
+    g_n, nb_max = len(idx), int(nb.max())
+    trace_g = np.zeros((g_n, nb_max, BW), np.uint8)
+    bll_g = np.zeros((g_n, nb_max), np.int64)
+    lv_g = np.full((g_n, nb_max - 2), -np.inf)
+    ranks = np.zeros((g_n, int(nk.max())), np.int32)
+    evm = np.zeros((g_n, int(ne.max())), np.float32)
+    for g, i in enumerate(idx):
+        rows = slice(band_off[g], band_off[g] + nb[g])
+        trace_g[g, : nb[g]] = trace[rows]
+        bll_g[g, : nb[g]] = bll_e[rows]
+        lv_g[g, : nb[g] - 2] = last_val[band_off[g] + 2 : band_off[g] + nb[g]]
+        ranks[g, : nk[g]] = kmer_ranks(sequences[i], KMER_SIZE, int(nk[g]))
+        evm[g, : ne[g]] = event_means_list[i]
+    pairs = native.abea_traceback_native(
+        trace_g, bll_g, lv_g, ranks, evm, abea_model_from_numpy(model),
+        np.array([scales[i] for i in idx], np.float32),
+        np.array([shifts[i] for i in idx], np.float32), ne, nk, BW, np.log(0.01))
+    for i, p in zip(idx, pairs):
+        results[i] = p
+    return results
+
+
+def align_events_batch_native(sequences, event_means_list, model, scales, shifts,
+                              bandwidth: int = ALN_BANDWIDTH, k: int = KMER_SIZE) -> list:
+    """The whole banded alignment, traceback and QC of each read on the
+    host (native/abeafill.cpp), bit-equal to the oracle's `align`: per
+    read its alignment or [], in input order."""
+    lib = native._lib()
+    p = native._p
+    m = abea_model_from_numpy(model)
+    lm, ls, lls = (np.ascontiguousarray(m[key], np.float32)
+                   for key in ("level_mean", "level_stdv", "level_log_stdv"))
+    out = []
+    for seq, ev, sc, sh in zip(sequences, event_means_list, scales, shifts):
+        n_events, n_kmers = len(ev), len(seq) - k + 1
+        if n_kmers < 1 or n_events < 1:
+            out.append([])
+            continue
+        ranks = np.ascontiguousarray(kmer_ranks(seq, k, n_kmers), np.int32)
+        evf = np.ascontiguousarray(ev, np.float32)
+        cap = n_events + n_kmers + 16
+        ki, ei = np.empty(cap, np.int32), np.empty(cap, np.int32)
+        n = lib.gt_abea_align(p(ranks), n_kmers, p(evf), n_events, p(lm), p(ls), p(lls),
+                              float(sc), float(sh), bandwidth, p(ki), p(ei), cap)
+        if n < 0:
+            raise RuntimeError("gt_abea_align: the alignment exceeded its capacity")
+        out.append(list(zip(ki[:n].tolist(), ei[:n].tolist())))
+    return out
+
+
 def align_events_batch(sequences, event_means_list, model, scales, shifts, device=None,
-                       stats: dict | None = None, keep: dict | None = None):
+                       stats: dict | None = None, keep: dict | None = None,
+                       use_native: bool = False):
     """Per read, its alignment [(kmer_idx, event_idx), ...] or [] (QC drop,
     no k-mer or no event), in input order: the oracle's `align` of each.
 
@@ -333,7 +409,11 @@ def align_events_batch(sequences, event_means_list, model, scales, shifts, devic
     accumulates wall seconds: "pack_s" (the numpy batch), "h2d_s", "fill_s",
     "walk_s" (each to its end on the device), "d2h_s" and "decode_s" (the
     QC and the pair lists).  `keep`, when given, gets "batch", "fill" and
-    "walk": the tensors the kernels were given and what they returned."""
+    "walk": the tensors the kernels were given and what they returned.
+    `use_native=True` runs the host engine (align_events_batch_native)
+    instead of the kernels: no device, no stats."""
+    if use_native:
+        return align_events_batch_native(sequences, event_means_list, model, scales, shifts)
     device = default_device(device)
     stats = {} if stats is None else stats
     for k in ("pack_s", "h2d_s", "fill_s", "walk_s", "d2h_s", "decode_s"):

@@ -1,12 +1,17 @@
 """f5c eventalign mode after the abea kernels, a batch of reads at a time.
 
 Counterpart of genomicsbench_palisade_tpu/ops/eventalign.py, whose fast
-paths run one read at a time through a native engine the port does not
-have.  The spec is ops/oracle/eventalign.py (per read, the reference's
-align.c, eventalign.c and f5c.c); every function here equals it exactly:
+paths run one read at a time through the JAX package's native engines
+(native/eventalign.cpp); the port binds them too (`estimate_scalings_mom_fast`,
+which lives in ops.events and is re-exported here, `scaling_read_fast`, `realign_read_arrays`, `realign_read`,
+`emit_tsv_text_arrays`) beside the numpy emitters (`emit_tsv_lines_fast`,
+`emit_tsv_lines_arrays`).  The spec is ops/oracle/eventalign.py (per
+read, the reference's align.c, eventalign.c and f5c.c); every function
+here equals it exactly:
 
-- `scaling_batch`: postalign, the WLS recalibration and the QC gates
-  (scaling_read) on the host in numpy.  The C's double sums are
+- `scaling_batch`: postalign, the WLS recalibration and the QC gates,
+  by default `gt_eventalign_scaling` a read; `use_native=False` is the
+  plain version in numpy (scaling_read).  The C's double sums are
   sequential, so they are `np.add.accumulate` (np.sum adds pairwise).
 - `realign_batch`: the reference-space profile-HMM realign
   (align_read_to_ref, profile_hmm_align) of every read in torch on the
@@ -24,7 +29,12 @@ align.c, eventalign.c and f5c.c); every function here equals it exactly:
   starts at each window's own last row and k-mer, :446-449), so it is
   not computed.
 - `emit_tsv`, `summarize`: a read's TSV rows (emit_tsv_lines) as one
-  string, and its --summary fields (summarize_alignment).
+  string, by default through the native block formatter
+  (`emit_tsv_text_arrays`; `use_native=False` is the f-string rows), and
+  its --summary fields (summarize_alignment).
+- The host realign (`realign_read_arrays`, `realign_read`: the native
+  engine a read) stands beside `realign_batch`, which stays the CLI's
+  route (ROADMAP queue 3).
 
 The realign uses eager elementwise torch ops only (no fused or `alpha=`
 forms, which CUDA would contract into FMAs), so the card, the CPU and
@@ -40,7 +50,10 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..io import native
 from .abea import _emission, kmer_ranks
+from .events import base_codes, estimate_scalings_mom_fast  # noqa: F401 (re-exported)
+from .oracle import eventalign as EAO
 from .oracle.abea import KMER_SIZE
 
 FAILED_CALIBRATION = 0x001  # f5c.h:49-51
@@ -137,12 +150,44 @@ def scaling_read(sequence: str, events, pairs, lm, ls):
     return 0, sc, b2e, events_per_base
 
 
-def scaling_batch(seqs, events, pairs, model) -> list:
+def scaling_batch(seqs, events, pairs, model, use_native: bool = True) -> list:
     """scaling_read of every read of a batch: per read (status flag,
-    {shift, scale, var, log_var} f32 or None, b2e, events_per_base)."""
+    {shift, scale, var, log_var} f32 or None, b2e, events_per_base).  The
+    native pass a read (`scaling_read_fast`), or with `use_native=False`
+    numpy's."""
+    if use_native:
+        return [scaling_read_fast(s, e, p, model) for s, e, p in zip(seqs, events, pairs)]
     lm = np.asarray(model["level_mean"], np.float32)
     ls = np.asarray(model["level_stdv"], np.float32)
     return [scaling_read(s, e, p, lm, ls) for s, e, p in zip(seqs, events, pairs)]
+
+
+def scaling_read_fast(sequence, events, pairs, model):
+    """The oracle's scaling_read with the native postalign, recalibration
+    and QC pass (gt_eventalign_scaling: double sums in the oracle's
+    sequential order, bit-exact): (status, scalings, b2e, events_per_base)."""
+    lib = native._lib()
+    n_kmers = len(sequence) - KMER_SIZE + 1
+    codes = base_codes(sequence)
+    pk = np.ascontiguousarray([p[0] for p in pairs], np.int32)
+    pe = np.ascontiguousarray([p[1] for p in pairs], np.int32)
+    ev_mean = np.ascontiguousarray(events["mean"], np.float32)
+    lm = np.ascontiguousarray(model["level_mean"], np.float32)
+    ls = np.ascontiguousarray(model["level_stdv"], np.float32)
+    sc_out = np.zeros(4, np.float32)
+    b2e = np.full((max(n_kmers, 1), 2), -1, np.int32)
+    epb = np.zeros(1, np.float64)
+    p = native._p
+    rc = lib.gt_eventalign_scaling(p(codes), len(sequence), p(pk), p(pe), len(pk), p(ev_mean),
+                                   p(lm), p(ls), p(sc_out), p(b2e), p(epb))
+    if rc == 2:  # the oracle's FAILED_ALIGNMENT: no b2e, events_per_base 0
+        return FAILED_ALIGNMENT, None, None, 0.0
+    if rc == 1:
+        return FAILED_CALIBRATION, None, b2e, float(epb[0])
+    sc = {"shift": sc_out[0], "scale": sc_out[1], "var": sc_out[2], "log_var": sc_out[3]}
+    if rc == 4:
+        return FAILED_QUALITY_CHK, sc, b2e, float(epb[0])
+    return 0, sc, b2e, float(epb[0])
 
 
 # ---------------------------------------------------------------------------
@@ -580,9 +625,179 @@ def realign_batch(reads, model, device=None, region_start: int = -1, region_end:
             for r, p, res in zip(reads, preps, results)]
 
 
+def realign_read_arrays(record, ref_segment, ref_offset, read_length, events, sc, model, b2e,
+                        events_per_base, region_start=-1, region_end=-1):
+    """The native profile-HMM realign of one read (native/eventalign.cpp),
+    raw arrays: (ref_positions int32, event_indices int32, states bytes of
+    b'M'/b'B', ref_seq str, the disambiguated segment)."""
+    ref_seq = EAO.disambiguate(ref_segment)
+    max_kmer_idx = read_length - KMER_SIZE
+    trimmed = []
+    for seg in EAO.get_aligned_segments(record, 1):
+        if region_start != -1 and region_end != -1:
+            seg = EAO.trim_aligned_pairs_to_ref_region(seg, region_start, region_end)
+        trimmed.append(EAO.trim_aligned_pairs_to_kmer(seg, max_kmer_idx))
+    ref_codes = np.frombuffer(
+        ref_seq.encode().translate(bytes.maketrans(b"ACGT", bytes([0, 1, 2, 3]))), np.uint8)
+    rp, ei, st = native.eventalign_realign_native(ref_codes, ref_offset, trimmed,
+                                                  record.is_reverse, read_length,
+                                                  events["mean"], sc, model, b2e,
+                                                  events_per_base)
+    return rp, ei, st, ref_seq
+
+
+def realign_read(record, ref_segment, ref_offset, read_length, events, sc, model, b2e,
+                 events_per_base, read_idx, region_start=-1, region_end=-1,
+                 use_native: bool = True):
+    """align_read_to_ref of one read on the host: the native engine, or
+    with `use_native=False` the oracle; the oracle's event_alignment dict
+    list either way."""
+    if not use_native:
+        return EAO.align_read_to_ref(record, ref_segment, ref_offset, read_length, events, sc,
+                                     model, b2e, events_per_base, read_idx, region_start,
+                                     region_end)
+    rp, ei, st, ref_seq = realign_read_arrays(record, ref_segment, ref_offset, read_length,
+                                              events, sc, model, b2e, events_per_base,
+                                              region_start, region_end)
+    rc = record.is_reverse
+    out = []
+    for ref_position, event_idx, state in zip(rp.tolist(), ei.tolist(), st.decode()):
+        ref_kmer = ref_seq[ref_position - ref_offset : ref_position - ref_offset + KMER_SIZE]
+        if state == "B":
+            model_kmer = "N" * KMER_SIZE
+        elif rc:
+            model_kmer = EAO.reverse_complement(ref_kmer)
+        else:
+            model_kmer = ref_kmer
+        out.append({"ref_position": ref_position, "ref_kmer": ref_kmer, "read_idx": read_idx,
+                    "event_idx": event_idx, "rc": rc, "model_kmer": model_kmer,
+                    "hmm_state": state})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # TSV and summary (eventalign.c:1580-1941)
 # ---------------------------------------------------------------------------
+
+def _level_columns(ev_mean, ev_stdv, ev_len, lm, ls, is_b, sc, sample_rate, scale_events):
+    """The TSV's float columns (emit_tsv_lines' op tree, f32 values
+    promoted to double): event mean, stdv, duration, model mean, stdv and
+    the standardized level, as float64 arrays."""
+    shift, scale, var = (np.float32(sc[k]) for k in ("shift", "scale", "var"))
+    duration = (ev_len / np.float32(sample_rate)).astype(np.float32)
+    zero = np.float32(0.0)
+    if scale_events:
+        ev_mean = ((ev_mean - shift) / scale).astype(np.float32)
+        model_mean = np.where(is_b, zero, lm)
+        model_stdv = np.where(is_b, zero, ls)
+    else:
+        model_mean = np.where(is_b, zero, (scale * lm + shift).astype(np.float32))
+        model_stdv = np.where(is_b, zero, (ls * var).astype(np.float32))
+    # a float over (sqrt(double var) * float): only the quotient rounds to
+    # f32; a B row divides by 0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        level = ((ev_mean - model_mean).astype(np.float32).astype(np.float64)
+                 / (np.sqrt(np.float64(var)) * model_stdv.astype(np.float64))).astype(np.float32)
+    return tuple(a.astype(np.float64) for a in (ev_mean, ev_stdv, duration, model_mean,
+                                                model_stdv, level))
+
+
+def _rank_of(model_kmers) -> np.ndarray:
+    """Ranks of [n, k] ASCII k-mers (ACGT 0-3, any other byte 0)."""
+    return (_CODE[model_kmers] << (2 * (KMER_SIZE - 1 - np.arange(KMER_SIZE)))).sum(1)
+
+
+def emit_tsv_lines_fast(events, model, sc, alignments, read_index, read_name, ref_name,
+                        sample_rate, print_read_names=False, scale_events=False):
+    """The oracle's emit_tsv_lines over its event_alignment dicts, with
+    the float columns as arrays: its rows, byte for byte."""
+    n = len(alignments)
+    if n == 0:
+        return []
+    eidx = np.fromiter((ea["event_idx"] for ea in alignments), np.int64, n)
+    is_b = np.fromiter((ea["hmm_state"] == "B" for ea in alignments), bool, n)
+    mk = np.frombuffer("".join(ea["model_kmer"] for ea in alignments).encode(),
+                       np.uint8).reshape(n, KMER_SIZE)
+    ranks = _rank_of(mk)
+    em, es, ed, mm, ms, sl = (c.tolist() for c in _level_columns(
+        np.asarray(events["mean"], np.float32)[eidx], np.asarray(events["stdv"], np.float32)[eidx],
+        np.asarray(events["length"], np.float32)[eidx],
+        np.asarray(model["level_mean"], np.float32)[ranks],
+        np.asarray(model["level_stdv"], np.float32)[ranks], is_b, sc, sample_rate, scale_events))
+    who = read_name if print_read_names else str(int(read_index))
+    ei = eidx.tolist()
+    return [f"{ref_name}\t{ea['ref_position']}\t{ea['ref_kmer']}\t{who}\tt\t"
+            f"{ei[i]}\t{em[i]:.2f}\t{es[i]:.3f}\t{ed[i]:.5f}\t"
+            f"{ea['model_kmer']}\t{mm[i]:.2f}\t{ms[i]:.2f}\t{sl[i]:.2f}\n"
+            for i, ea in enumerate(alignments)]
+
+
+def _emit_cols(events, model, sc, rp, ei, st, ref_seq, ref_offset, rc, sample_rate,
+               scale_events):
+    """The array emitters' columns: (reference k-mers, model k-mers [n, k]
+    ASCII, event indices int64, the six float64 columns), or None when a
+    k-mer would run past the segment."""
+    pos = rp.astype(np.int64) - np.int64(ref_offset)
+    refbytes = np.frombuffer(ref_seq.encode(), np.uint8)
+    if int(pos.min()) < 0 or int(pos.max()) + KMER_SIZE > refbytes.size:
+        return None
+    km = refbytes[pos[:, None] + np.arange(KMER_SIZE)]
+    is_b = np.frombuffer(st, np.uint8) == ord("B")
+    mk = _COMP[km][:, ::-1] if rc else km
+    if is_b.any():
+        mk = np.where(is_b[:, None], np.uint8(ord("N")), mk)
+    ranks = _rank_of(mk)
+    eidx = ei.astype(np.int64)
+    cols = _level_columns(
+        np.asarray(events["mean"], np.float32)[eidx], np.asarray(events["stdv"], np.float32)[eidx],
+        np.asarray(events["length"], np.float32)[eidx],
+        np.asarray(model["level_mean"], np.float32)[ranks],
+        np.asarray(model["level_stdv"], np.float32)[ranks], is_b, sc, sample_rate, scale_events)
+    return (km, mk, eidx, *cols)
+
+
+def emit_tsv_lines_arrays(events, model, sc, rp, ei, st, ref_seq, ref_offset, rc, read_index,
+                          read_name, ref_name, sample_rate, print_read_names=False,
+                          scale_events=False):
+    """emit_tsv_lines_fast fed by realign_read_arrays' raw output: the
+    k-mer columns by byte gathers over the reference segment.  Returns
+    the rows, or None when a k-mer would run past the segment."""
+    n = int(rp.shape[0])
+    if n == 0:
+        return []
+    cols = _emit_cols(events, model, sc, rp, ei, st, ref_seq, ref_offset, rc, sample_rate,
+                      scale_events)
+    if cols is None:
+        return None
+    km, mk, eidx, *floats = cols
+    em, es, ed, mm, ms, sl = (c.tolist() for c in floats)
+    who = read_name if print_read_names else str(int(read_index))
+    ei_l, rp_l = eidx.tolist(), rp.tolist()
+    kb, mb = km.tobytes().decode(), mk.tobytes().decode()
+    k = KMER_SIZE
+    return [f"{ref_name}\t{rp_l[i]}\t{kb[i * k:i * k + k]}\t{who}\tt\t"
+            f"{ei_l[i]}\t{em[i]:.2f}\t{es[i]:.3f}\t{ed[i]:.5f}\t"
+            f"{mb[i * k:i * k + k]}\t{mm[i]:.2f}\t{ms[i]:.2f}\t{sl[i]:.2f}\n"
+            for i in range(n)]
+
+
+def emit_tsv_text_arrays(events, model, sc, rp, ei, st, ref_seq, ref_offset, rc, read_index,
+                         read_name, ref_name, sample_rate, print_read_names=False,
+                         scale_events=False):
+    """The read's TSV as one string by the native block formatter
+    (gt_eventalign_emit), emit_tsv_lines_arrays' rows joined: (text,
+    rows), or None when a k-mer would run past the segment."""
+    n = int(rp.shape[0])
+    if n == 0:
+        return "", 0
+    cols = _emit_cols(events, model, sc, rp, ei, st, ref_seq, ref_offset, rc, sample_rate,
+                      scale_events)
+    if cols is None:
+        return None
+    km, mk, eidx, *floats = cols
+    who = read_name if print_read_names else str(int(read_index))
+    return native.eventalign_emit_native(rp, eidx, km.tobytes(), mk.tobytes(), KMER_SIZE,
+                                         *floats, ref_name, who), n
 
 def _kmers(aln: Alignment):
     """The rows' reference and model k-mers ([n, k] ASCII) and the model
@@ -598,43 +813,23 @@ def _kmers(aln: Alignment):
 
 
 def emit_tsv(aln: Alignment, events, model, sc, read_index, read_name, contig,
-             sample_rate, print_read_names=False, scale_events=False) -> str:
+             sample_rate, print_read_names=False, scale_events=False,
+             use_native: bool = True) -> str:
     """A read's eventalign TSV rows as one string: emit_tsv_lines'
-    columns and printf formats (f32 values promoted to double)."""
-    n = len(aln.ref_pos)
-    if n == 0:
+    columns and printf formats (f32 values promoted to double), by the
+    native block formatter (`emit_tsv_text_arrays`), or with
+    `use_native=False` by the numpy emitter's f-strings
+    (`emit_tsv_lines_arrays`)."""
+    if len(aln.ref_pos) == 0:
         return ""
-    ref_km, model_km, ranks = _kmers(aln)
-    is_b = aln.state == BAD_EVENT
-    lm = np.asarray(model["level_mean"], np.float32)[ranks]
-    ls = np.asarray(model["level_stdv"], np.float32)[ranks]
-    shift, scale, var = (np.float32(sc[k]) for k in ("shift", "scale", "var"))
-    ei = aln.event_idx
-    event_mean = np.asarray(events["mean"], np.float32)[ei]
-    event_stdv = np.asarray(events["stdv"], np.float32)[ei]
-    duration = np.asarray(events["length"], np.float32)[ei] / np.float32(sample_rate)
-    zero = np.float32(0.0)
-    if scale_events:
-        event_mean = (event_mean - shift) / scale
-        model_mean = np.where(is_b, zero, lm)
-        model_stdv = np.where(is_b, zero, ls)
-    else:
-        model_mean = np.where(is_b, zero, scale * lm + shift)
-        model_stdv = np.where(is_b, zero, ls * var)
-    # a float over (sqrt(double var) * float): only the quotient rounds to
-    # f32; a B row divides by 0
-    with np.errstate(divide="ignore", invalid="ignore"):
-        level = ((event_mean - model_mean).astype(np.float64)
-                 / (np.sqrt(np.float64(var)) * model_stdv.astype(np.float64))).astype(np.float32)
-    who = read_name if print_read_names else str(int(read_index))
-    k = KMER_SIZE
-    rk, mk = ref_km.tobytes().decode(), model_km.tobytes().decode()
-    return "".join(
-        f"{contig}\t{p}\t{rk[i * k:i * k + k]}\t{who}\tt\t{e}\t{a:.2f}\t{b:.3f}\t{c:.5f}\t"
-        f"{mk[i * k:i * k + k]}\t{x:.2f}\t{y:.2f}\t{z:.2f}\n"
-        for i, (p, e, a, b, c, x, y, z) in enumerate(zip(
-            aln.ref_pos.tolist(), ei.tolist(), event_mean.tolist(), event_stdv.tolist(),
-            duration.tolist(), model_mean.tolist(), model_stdv.tolist(), level.tolist())))
+    st = np.where(aln.state == BAD_EVENT, np.uint8(ord("B")), np.uint8(ord("M"))).tobytes()
+    args = (events, model, sc, aln.ref_pos, aln.event_idx, st, aln.ref.tobytes().decode(),
+            aln.ref_offset, aln.rc, read_index, read_name, contig, sample_rate,
+            print_read_names, scale_events)
+    out = emit_tsv_text_arrays(*args) if use_native else emit_tsv_lines_arrays(*args)
+    if out is None:
+        raise ValueError("a realigned k-mer runs past its reference segment")
+    return out[0] if use_native else "".join(out)
 
 
 def summarize(aln: Alignment, events, model, sc, nm=0) -> dict:

@@ -1,12 +1,15 @@
 """Host prep of a batch of nanopore reads: event detection and scalings.
 
 The batch counterpart of the oracle's `getevents` and
-`estimate_scalings_using_mom` (ops/oracle/events.py), bit-equal to them,
-in place of the JAX package's native `native/events.cpp` and
-`gt_mom_scalings`, which the port does not have.
+`estimate_scalings_using_mom` (ops/oracle/events.py), bit-equal to them.
+By default both run the JAX package's native engines a read at a time:
+`native/events.cpp` (`io.native.detect_events_native`) and
+`gt_mom_scalings` (`estimate_scalings_mom_fast`).  The
+numpy versions below are their plain versions (`use_native=False`).
 
-`detect_events_batch` computes each read's prefix sums and t-statistics
-with numpy (vectorised over its samples, as the oracle does), then runs
+`detect_events_batch(..., use_native=False)` computes each read's prefix
+sums and t-statistics with numpy (vectorised over its samples, as the
+oracle does), then runs
 the short/long peak detector.  The oracle's detector is a Python step per
 sample of each read.  Here the reads run in lockstep instead: one Python
 step per sample index, numpy over the reads still running (reads sorted
@@ -28,6 +31,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..io import native
+from ..io.native import detect_events_native
 from .abea import kmer_ranks
 from .oracle import events as EO
 from .oracle.abea import KMER_SIZE
@@ -38,6 +43,7 @@ F32_MAX = np.float32(np.finfo(np.float32).max)
 STEP_COST = 55.0  # one lockstep step, whatever its width
 LANE_COST = 0.2  # each read in a lockstep step
 LOCKSTEP_CHUNK = 4096  # lockstep steps whose t-statistics are laid out at a time
+_EMPTY = (np.zeros(1), np.zeros(1))  # an empty signal's prefix sums
 EVENT_DTYPE = [("start", np.uint64), ("length", np.float32), ("mean", np.float32),
                ("stdv", np.float32)]
 
@@ -154,10 +160,16 @@ def create_events(peaks, sums, sumsqs, nsample):
     return ev
 
 
-def detect_events_batch(signals):
+def detect_events_batch(signals, use_native: bool = True):
     """The oracle's `getevents` of each raw signal, as structured arrays
-    (start, length, mean, stdv), in input order."""
+    (start, length, mean, stdv), in input order: the native detector a
+    read, or with `use_native=False` the numpy lockstep."""
     raws = [np.asarray(s, np.float32) for s in signals]
+    if use_native:
+        # an empty signal's one event is 0/0: the oracle's stdv is NaN, the
+        # C's fmax makes it 0 (ROADMAP queue 3), so it takes the oracle's
+        return [detect_events_native(r) if len(r) else create_events([], *_EMPTY, 0)
+                for r in raws]
     n = np.array([len(r) for r in raws], np.int64)
     order = np.argsort(-n, kind="stable")
     k = lockstep_split(n[order])
@@ -175,13 +187,38 @@ def detect_events_batch(signals):
     return events
 
 
-def estimate_scalings_mom_batch(sequences, model, events_list):
+_CODE = np.zeros(256, np.uint8)  # any byte but ACGT codes as A (get_kmer_rank)
+_CODE[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+
+
+def base_codes(sequence: str) -> np.ndarray:
+    """A read's bases as uint8 codes, A0 C1 G2 T3 and any other byte 0."""
+    return _CODE[np.frombuffer(sequence.encode(), np.uint8)]
+
+
+def estimate_scalings_mom_fast(sequence, model, events):
+    """estimate_scalings_using_mom by the native sequential double pass
+    (gt_mom_scalings, bit-exact): (shift, scale) as f32."""
+    ev_mean = np.ascontiguousarray(events["mean"], np.float32)
+    lm = np.ascontiguousarray(model["level_mean"], np.float32)
+    out = np.zeros(2, np.float32)
+    p = native._p
+    native._lib().gt_mom_scalings(p(base_codes(sequence)), len(sequence), p(ev_mean),
+                                  len(ev_mean), p(lm), p(out))
+    return out[0], out[1]
+
+
+def estimate_scalings_mom_batch(sequences, model, events_list, use_native: bool = True):
     """(shifts, scales) f32 arrays: the oracle's estimate_scalings_using_mom
-    of each (sequence, events), in input order."""
+    of each (sequence, events), in input order: `gt_mom_scalings` a read,
+    or with `use_native=False` numpy's sequential sums."""
     lm = np.asarray(model["level_mean"], np.float32)
     shifts = np.zeros(len(sequences), np.float32)
     scales = np.zeros(len(sequences), np.float32)
     for r, (seq, events) in enumerate(zip(sequences, events_list)):
+        if use_native:
+            shifts[r], scales[r] = estimate_scalings_mom_fast(seq, model, events)
+            continue
         n_kmers = len(seq) - KMER_SIZE + 1
         x = np.asarray(events["mean"]).astype(np.float64)
         levels = lm[kmer_ranks(seq, KMER_SIZE, n_kmers)].astype(np.float64)

@@ -38,13 +38,17 @@ fixpoint flag, one a traceback block (the walk stops once every window is
 done), and the alignments' copy to the host.
 
 Rank-space graph arrays (padded): code [N], preds [N, P] (rank+1, 0 = the
-virtual start row), npreds [N], out_empty [N], n_nodes.  The native host
-engine (`NativePoaGraph`, `msa_consensus_host`) is ROADMAP queue 1 item
-15.
+virtual start row), npreds [N], out_empty [N], n_nodes.  The JAX
+package's native host engine stands beside the device aligner:
+`NativePoaGraph` (native/poagraph.cpp and poaalign.cpp: spoa's graph and
+its convex alignment in C++) and `msa_consensus_host` (a window's whole
+loop in C++), which `cli.poa --engine host` runs; `auto` stays the device
+aligner (ROADMAP queue 3).
 """
 
 from __future__ import annotations
 
+import ctypes
 import time
 
 import numpy as np
@@ -52,6 +56,7 @@ import torch
 
 from .. import default_device
 from ..convert import poa_batch_from_numpy
+from ..io import native
 from .oracle.poa import PoaGraph, PoaParams, convex_align
 
 NEG_INF = -(1 << 31) + 1024  # spoa kNegativeInfinity
@@ -595,3 +600,125 @@ def msa_consensus_batch(batches, params=(2, -4, -6, -2, -25, -1), timings: dict 
     if timings is not None:
         timings.update(align=t_align, add=t_add, consensus=time.perf_counter() - t0)
     return out
+
+
+def msa_consensus_host(batches, params=(2, -4, -6, -2, -25, -1), timings: dict | None = None):
+    """Consensus of each window by the native host engine: the whole
+    window loop (convex alignment, add_alignment, the heaviest-bundle
+    consensus) in C++ (gt_poa_msa_window), equal to msa_consensus_batch.
+    timings, when given, gets the engine's align / add / consensus
+    seconds."""
+    lib = native._lib()
+    phases = np.zeros(3, np.float64)
+    out = []
+    for batch in batches:
+        if not batch:
+            out.append("")
+            continue
+        blob = "".join(batch).encode()
+        lens = np.array([len(s) for s in batch], np.int32)
+        offs = np.zeros(len(batch), np.int64)
+        np.cumsum(lens[:-1], out=offs[1:])
+        cap = int(lens.sum()) + 8
+        cons = ctypes.create_string_buffer(cap)
+        n = lib.gt_poa_msa_window(blob, native._p(offs), native._p(lens), len(batch), *params,
+                                  cons, cap, native._p(phases))
+        if n < 0:
+            raise RuntimeError("consensus longer than total input bases")
+        out.append(cons.raw[:n].decode())
+    if timings is not None:
+        timings.update(align=float(phases[0]), add=float(phases[1]), consensus=float(phases[2]))
+    return out
+
+
+class NativePoaGraph:
+    """spoa's graph in C++ (native/poagraph.cpp), the oracle PoaGraph's
+    contract: add_alignment, generate_consensus, the rank-space arrays of
+    graph_to_arrays, and the native convex alignment (`align`).
+    `to_python()` rebuilds the oracle graph."""
+
+    def __init__(self):
+        self.lib = native._lib()
+        self.h = self.lib.gt_poa_new()
+
+    def __del__(self):
+        if getattr(self, "h", None):
+            self.lib.gt_poa_free(self.h)
+            self.h = None
+
+    def n_nodes(self) -> int:
+        return int(self.lib.gt_poa_n_nodes(self.h))
+
+    def align(self, sequence: str, params=(2, -4, -6, -2, -25, -1), align_type: str = "nw"):
+        """The convex alignment of `sequence` to this graph (poaalign.cpp,
+        the oracle's convex_align): [(node_id or -1, position or -1)]."""
+        atype = {"nw": 0, "sw": 1, "ov": 2}[align_type]
+        cap = self.n_nodes() + len(sequence) + 8
+        while True:
+            nid, pos = np.empty(cap, np.int32), np.empty(cap, np.int32)
+            cnt = self.lib.gt_poa_align(self.h, sequence.encode(), len(sequence), *params, atype,
+                                        native._p(nid), native._p(pos), cap)
+            if cnt >= 0:
+                return list(zip(nid[:cnt].tolist(), pos[:cnt].tolist()))
+            cap *= 2
+
+    def add_alignment(self, alignment, sequence: str, weights=None):
+        if weights is not None:
+            raise ValueError("the native graph takes unit weights only")
+        nid = np.array([a for a, _ in alignment], np.int32)
+        pos = np.array([b for _, b in alignment], np.int32)
+        self.lib.gt_poa_add_alignment(self.h, native._p(nid), native._p(pos), len(alignment),
+                                      sequence.encode(), len(sequence))
+
+    def generate_consensus(self) -> str:
+        cap = self.n_nodes() + 1
+        buf = ctypes.create_string_buffer(cap)
+        n = self.lib.gt_poa_consensus(self.h, buf, cap)
+        if n < 0:
+            raise RuntimeError("consensus overflow")
+        return buf.raw[:n].decode()
+
+    def arrays(self, n_cap: int, p_cap: int, code_map):
+        """graph_to_arrays' dict and the rank -> node id list, or (None,
+        None) past n_cap nodes or p_cap predecessors."""
+        code_char = np.zeros(n_cap, np.uint8)
+        preds = np.zeros((n_cap, p_cap), np.int32)
+        npreds = np.zeros(n_cap, np.int32)
+        out_empty = np.zeros(n_cap, np.uint8)
+        rank = np.zeros(n_cap, np.int32)
+        n_out = np.zeros(1, np.int64)
+        p = native._p
+        if self.lib.gt_poa_arrays(self.h, n_cap, p_cap, p(code_char), p(preds), p(npreds),
+                                  p(out_empty), p(rank), p(n_out)) != 0:
+            return None, None
+        n = int(n_out[0])
+        glob = np.full(256, 9, np.int64)
+        for ch, v in code_map.items():
+            glob[ord(ch)] = v
+        code = np.zeros(n_cap, np.int32)
+        code[:n] = glob[code_char[:n]]
+        return ({"code": code, "preds": preds, "npreds": npreds,
+                 "out_empty": out_empty.astype(bool), "n_nodes": np.int32(n)},
+                rank[:n].tolist())
+
+    def to_python(self):
+        """The oracle PoaGraph of this graph (nodes, edges, ranks)."""
+        n = self.n_nodes()
+        ne = int(self.lib.gt_poa_n_edges(self.h))
+        node_char = np.zeros(max(n, 1), np.uint8)
+        eb, ee = np.zeros(max(ne, 1), np.int32), np.zeros(max(ne, 1), np.int32)
+        ew = np.zeros(max(ne, 1), np.int64)
+        rank = np.zeros(max(n, 1), np.int32)
+        p = native._p
+        self.lib.gt_poa_export(self.h, p(node_char), p(eb), p(ee), p(ew), p(rank))
+        g = PoaGraph()
+        for i in range(n):
+            ch = chr(node_char[i])
+            if ch not in g.coder:
+                g.coder[ch] = len(g.decoder)
+                g.decoder.append(ch)
+            g.add_node(g.coder[ch])
+        for e in range(ne):
+            g.add_edge(int(eb[e]), int(ee[e]), int(ew[e]))
+        g.rank_to_node_id = rank[:n].tolist()
+        return g

@@ -280,7 +280,7 @@ def test_detect_events_batch_equals_oracles(monkeypatch):
         monkeypatch.setattr(EV, "STEP_COST", step_cost)
         if k is not None:
             assert EV.lockstep_split(n_sorted) == k
-        got = EV.detect_events_batch(sigs)
+        got = EV.detect_events_batch(sigs, use_native=False)
         assert len(got) == len(sigs)
         for g, (want, jwant) in zip(got, wants):
             assert g.dtype == want.dtype == jwant.dtype
@@ -293,7 +293,7 @@ def test_detect_events_batch_equals_oracles(monkeypatch):
     seqs = ["".join(rng.choice(list("ACGT"), len(g) + int(rng.integers(6, 40))))
             for g in got[:2] + got[3:4]]
     m = {"level_mean": rng.uniform(60, 140, 4096).astype(np.float32)}
-    shifts, scales = EV.estimate_scalings_mom_batch(seqs, m, got[:2] + got[3:4])
+    shifts, scales = EV.estimate_scalings_mom_batch(seqs, m, got[:2] + got[3:4], use_native=False)
     for seq, ev, sh, sc in zip(seqs, got[:2] + got[3:4], shifts, scales):
         assert (sh, sc) == EO.estimate_scalings_using_mom(seq, m, ev) \
             == JEO.estimate_scalings_using_mom(seq, m, ev)
@@ -515,7 +515,7 @@ def test_detect_events_batch_gives_long_reads_to_the_per_read_loop():
     sigs = _signals(34, [90] * 50 + [600] + [90] * 50)
     n_sorted = np.sort([len(s) for s in sigs])[::-1]
     assert 1 <= EV.lockstep_split(n_sorted) < 10  # the long read and a few more
-    for s, g in zip(sigs, EV.detect_events_batch(sigs)):
+    for s, g in zip(sigs, EV.detect_events_batch(sigs, use_native=False)):
         want = EO.detect_events(s)
         for key in ("start", "length", "mean", "stdv"):
             np.testing.assert_array_equal(g[key], want[key], err_msg=key)

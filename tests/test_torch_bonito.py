@@ -162,6 +162,7 @@ def test_beam_search_equals_jax_python_path(monkeypatch):
             want = JB.beam_search_decode(lp, beam_size=beam)
             assert B.beam_search_decode(lp, beam_size=beam) == want, (seed, beam)
             assert B.beam_search_decode(torch.from_numpy(lp), beam_size=beam) == want
+            assert B.beam_search_decode(lp, beam_size=beam, use_native=False) == want
     lp2 = np.log(np.array([[0.55, 0.45, 0, 0, 0]] * 2).clip(1e-12))
     assert B.viterbi_decode(lp2) == "" and B.beam_search_decode(lp2) == "A"
 

@@ -165,6 +165,8 @@ def test_parse_pairs_soa_matches_jax(tmp_path, terminated):
     with open(pf, "rb") as f:  # a file object parses the same
         again = PIO.parse_pairs_soa(f)
     assert all(np.array_equal(again[k], got[k]) for k in got)
+    plain = PIO.parse_pairs_soa(pf, use_native=False)  # the numpy parse
+    assert all(np.array_equal(plain[k], got[k]) and plain[k].dtype == got[k].dtype for k in got)
     lists = PIO.parse_pairs(pf)
     jlists = JIO.parse_pairs(str(pf))
     assert len(lists) == len(jlists) == len(pairs)

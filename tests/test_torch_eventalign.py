@@ -142,6 +142,8 @@ def test_golden_case_exact(golden_run, ci):
         assert s["reference_span"] == int(wn[7])
         rows = EA.emit_tsv(aln, rr.events, model, sc, read_idx, ent[0], "ctg1", SAMPLE_RATE)
         assert rows.splitlines() == want["tsv"], ent[0]
+        assert EA.emit_tsv(aln, rr.events, model, sc, read_idx, ent[0], "ctg1", SAMPLE_RATE,
+                           use_native=False) == rows
 
 
 def test_golden_batch_text_and_counts(golden_run):
@@ -181,9 +183,9 @@ def _oracle_check(oracle, rr, aln, model, region=(-1, -1)):
     assert _as_dicts(aln, 3) == want
     assert EA.summarize(aln, rr.events, model, rr.sc, 2) == oracle.summarize_alignment(
         rr.events, model, rr.sc, want, SAMPLE_RATE, nm=2)
-    for names, scaled in itertools.product((False, True), repeat=2):
+    for names, scaled, native in itertools.product((False, True), repeat=3):
         assert EA.emit_tsv(aln, rr.events, model, rr.sc, 3, "rd", "chr", SAMPLE_RATE, names,
-                           scaled) == "".join(oracle.emit_tsv_lines(
+                           scaled, native) == "".join(oracle.emit_tsv_lines(
                                rr.events, model, rr.sc, want, 3, "rd", "chr", SAMPLE_RATE,
                                names, scaled))
     return want
@@ -214,8 +216,9 @@ def test_scaling_equals_both_oracles(golden_run):
     pairs = A.align_events_batch(seqs, [ev["mean"] for ev in events], model,
                                  [float(v) for v in scales], [float(v) for v in shifts], "cpu")
     got = EA.scaling_batch(seqs, events, pairs, model)
+    plain = EA.scaling_batch(seqs, events, pairs, model, use_native=False)
     for oracle in (EAO, JEAO):
-        for g, seq, ev, p in zip(got, seqs, events, pairs):
+        for g, seq, ev, p in zip(got + plain, seqs + seqs, events + events, pairs + pairs):
             w = oracle.scaling_read(seq, ev, p, model)
             assert g[0] == w[0] and g[3] == w[3]
             assert (g[1] is None) == (w[1] is None)

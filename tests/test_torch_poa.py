@@ -289,11 +289,20 @@ def test_cli_prints_the_jax_cli_stdout(poa_file, capsys, monkeypatch, flags):
     assert cli.read_batches(str(poa_file)) == jcli.read_batches(str(poa_file))
 
 
-def test_cli_refuses_engine_host(poa_file, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["-s", str(poa_file), "--engine", "host", "--device", "cpu"])
-    assert e.value.code == 2
-    assert "ROADMAP queue 1 item 15" in capsys.readouterr().err
+def test_cli_refuses_engine_host(poa_file, capsys, monkeypatch):
+    """`--engine host` is no longer refused (the test keeps the name it had
+    while the port lacked the engine): it runs the native engine on the
+    host, with no device, and prints what `--engine device` prints, and the
+    reference's stderr line."""
+    assert cli.main(["-s", str(poa_file), "--engine", "device", "--device", "cpu"]) == 0
+    want = capsys.readouterr()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["-s", str(poa_file), "--engine", "host"]) == 0
+    got = capsys.readouterr()
+    assert _runtime_masked(got.out) == _runtime_masked(want.out)
+    assert got.out.count("consensus_seq: ") == 3
+    assert re.fullmatch(r"Runtime: [0-9.]+, GraphCreate: 0.00, Align: [0-9.]+, AddSeqGraph: "
+                        r"[0-9.]+, Consensus [0-9.]+ [0-9.]+ [0-9.]+\n", got.err)
 
 
 def test_entry_points_need_a_gpu_or_device_cpu(poa_file, monkeypatch):
