@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's PairHMM, bsw, chain, abea (read-coordinate and
 eventalign modes), fmi (device and host engines), kmer, poa, grm, basecall,
-call_var, dbg, pileup and fmi_build paths and its occ-gather, bsw roofline
-and chain roofline probes on one GPU and hold their kernels to their plain
-PyTorch versions.
+call_var, dbg, pileup and fmi_build paths, its sharded runtime and its
+occ-gather, bsw roofline and chain roofline probes on one GPU and hold
+their kernels to their plain PyTorch versions.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases 4,8,12,17,19,24,26]
 
-Phases, run in the order 1, 2, 11, 12, 3-10, 16-25, 13-15 (any failure
-exits non-zero and prints no result).  The host phases of the main paths
+Phases, run in the order 1, 2, 11, 12, 3-10, 16-26, 13-15 (any failure
+exits non-zero and prints no result; `--phases` runs a subset, with 1, 2
+and 15, and prints no kernels line).  The host phases of the main paths
 run the JAX package's native engines by default (native/*.cpp through
 `io.native`): the pair scan (phase 6), event detection and scalings
 (10, 16), the FASTQ parse (12, 17), the eventalign QC and emit (16), the
@@ -88,7 +89,9 @@ CTC beam (20) and the BAM decode (22).
      for the bound; the kernel timed on the main path's launch and on
      those calls as one launch (the kernels line's figures); the 25 + 6
      reference goldens through `run_calls` on the card; up to 8 calls of
-     the dump with n <= 1500 against the port's oracle (exactly);
+     the dump with n <= 1500 against the port's oracle (exactly); the halo
+     entry (`first`) on the same cut: each call's first 200 rows preset
+     (the plain result, scores raised by 0-40), kernel against plain;
   9. the abea kernels (fill and walk) against their plain versions on the
      card, bit for bit, on 128 reads of 1-4 kb made by the generator of
      tools/abea_scale_bench.py (synth_read, rng seed 17), with kernel and
@@ -296,6 +299,25 @@ CTC beam (20) and the BAM decode (22).
      fallback bucket's first 4,096 cases), B5 the eventalign host realign
      (eventalign-512's 16 shortest reads); phase 25 fails unless all
      fifteen were checked and equal;
+ 26. the sharded runtime (parallel/), after 25: 2 gloo ranks spawned on the
+     one card (NCCL refuses two ranks a device), each running every
+     sharded path on its share of the earlier phases' data, against the
+     single-rank port run on the card: `cli.phmm` on dataset-550 (rank 0's
+     bytes equal the one-rank run's but the runtime line), bsw-bench-8192,
+     the halo over chain-1001's longest call (87,271 anchors) at w = w_need
+     (equal to the main path's result) and at w = 64 (equal to the
+     windowed single-device kernel), and over its head of max(6,000, 2 x
+     w_need) anchors (equal to the oracle), kmer-0.25g's first 6,400 reads
+     (64 Mbp; metrics and per-rank counts), grm-8192x65536's genotypes
+     (2e-5: the sum order differs), poa-64x10x750's first round,
+     abea-bench-128's fill, both fmi paths over fmi-256m-2048's index
+     (8,000,001 rows split by block range; both over its 2,048 reads),
+     and
+     fmi-build-16m's index written as 2 shard files, each rank loading its
+     own, with 256 reads of its genome; a `sharded` line a path (seconds
+     per rank, the equality), the kernels' launches per rank (each must
+     launch); then one NCCL rank in this process (bsw, kmer, the fmi
+     search);
  15. the abea chain cost: per abea cell the ns and SM cycles (at the
      median clock of phases 13-14) a band of the fill and a step of the
      walk, and the chain floors; each kernel's device seconds over one
@@ -322,6 +344,7 @@ import io
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -418,6 +441,7 @@ CLAIR_TOL = 2e-5  # clair_golden.npz's atol, and card against CPU
 # of its longest call) and abea-512's reads of up to ABEA_PLAIN_MAX_BASES
 # bases (once per band of its longest read)
 CHAIN_PLAIN_MAX_N = 16_384
+CHAIN_HALO_FIRST = 200  # preset rows a call in the halo entry's check: all 96 bank slots
 ABEA_PLAIN_MAX_BASES = 4_000
 EA_DROPPED = 16  # eventalign-512's records of each kind f5c's filters drop
 EA_SPACER = (50, 500)  # random bases between two reads in its genome
@@ -1723,8 +1747,9 @@ class Port:
         from genomicsbench_palisade_tpu_torch.tools import chain_roofline as chain_probe
         from genomicsbench_palisade_tpu_torch.tools import occ_gather_experiment as occ_tool
         from genomicsbench_palisade_tpu_torch.utils import build
+        from genomicsbench_palisade_tpu_torch.parallel import dp, mesh
 
-        vars(self).update(cli=cli, cli_bsw=cli_bsw, bsw_batch_from_numpy=bsw_batch_from_numpy,
+        vars(self).update(dp=dp, mesh=mesh, cli=cli, cli_bsw=cli_bsw, bsw_batch_from_numpy=bsw_batch_from_numpy,
                           parse_pairs_soa=parse_pairs_soa, parse_testfile=parse_testfile, W=W,
                           bsw_cuda=bsw_cuda, P=P, phmm_cuda=phmm_cuda, bsw_oracle=bsw_oracle,
                           oracle=oracle, build=build, cli_chain=cli_chain,
@@ -1770,6 +1795,7 @@ class Record:
         self.abea_chain = []  # the abea kernels' chain rows, printed at the end
         self.card = ""  # nvidia-smi's name and power limit, beside phases 17-18's figures
         self.native = []  # phase 25's rows: a native host engine against its plain version
+        self.shared = {}  # the data of phases 4, 8, 12, 17, 19 and 24 that phase 26 shards
 
     def profiled(self, cell, prof):
         """Keep each kernel's summed device time from a main path's profile."""
@@ -1828,6 +1854,7 @@ def phmm_phases(torch, port: Port, rec: Record, seed: int):
         tf = Path(tmp) / "testfile.txt"
         t0 = time.perf_counter()
         synth_testfile(tf, np.random.default_rng(seed))
+        rec.shared["phmm_testfile"] = tf.read_bytes()
         log(f"testfile: {N_BATCHES} batches, {tf.stat().st_size / 1e6:.1f} MB, "
             f"written in {time.perf_counter() - t0:.1f} s")
 
@@ -2417,6 +2444,28 @@ def chain_phases(torch, port: Port, rec: Record, seed: int):
             "of_anchors": anchors, "max_n": int(n_calls[n_calls <= CHAIN_PLAIN_MAX_N].max()),
             "plain_s": plain_ms * 1e-3, **st}
     log("chain main path vs plain, calls up to the cut " + json.dumps(seen))
+
+    # the halo entry (`first`, the sharded runtime's preset head) on the same
+    # cut: each call's first CHAIN_HALO_FIRST rows preset from the kernel's
+    # own output with the scores raised by 0-40 (as a halo computed with
+    # more predecessors differs), kernel against plain with the same preset
+    sub_h = {**sub, "first": torch.clamp(sub["n"], max=CHAIN_HALO_FIRST).to(torch.int32)}
+    preset = torch.full_like(want, -777)
+    heads = ranges(torch, sub_h["off"], sub_h["first"].long())
+    lift = torch.from_numpy(np.random.default_rng(seed).integers(0, 41, heads.numel())).to(DEVICE)
+    preset[0, heads] = want[0, heads] + lift.int()
+    preset[1, heads] = want[1, heads]
+    preset[2, heads] = torch.maximum(want[2, heads], preset[0, heads])
+    t0 = time.perf_counter()
+    got_h = C.chain_dp(sub_h, kb["params"], out=preset.clone())
+    want_h = C.chain_dp_plain(sub_h, kb["params"], out=preset.clone())
+    rec.check(name, max_abs_diff(torch, got_h, want_h),
+              f"the halo entry (first {CHAIN_HALO_FIRST}) on the cut")
+    log(f"chain halo entry: the cut's {seen['calls']} calls, rows [0, {CHAIN_HALO_FIRST}) preset, "
+        f"kernel equal to plain; rows past the head differ from the unpreset run at "
+        f"{int((got_h != want).any(0).sum())} anchors ({time.perf_counter() - t0:.1f} s)")
+    longest = int(np.argmax([c.n for c in calls]))
+    rec.shared["chain"] = {"call": calls[longest], "result": results[longest]}
     if not (e2e["scores_nonzero_share"] > 0 and e2e["parents_share"] > 0 and st["breaks"] > 0):
         fail("the chain main path's calls did not score, chain and break: the check would "
              "hold nothing")
@@ -3108,6 +3157,7 @@ def kmer_phase(torch, port: Port, rec: Record, seed: int):
                                  KMER_GENOME_MBP, KMER_ERR)
         write_fasta(tmp / "reads.fa", codes)
         write_fasta(tmp / "parity.fa", codes[:KMER_PARITY_READS])
+        rec.shared["kmer_codes"] = codes[:SHARD_KMER_READS].copy()
         del codes
         cfg = tmp / "kmer.cfg"
         cfg.write_text(f"kmer_size = {KMER_K}\nuse_minimizers = 0\n")
@@ -3394,6 +3444,7 @@ def grm_phase(torch, port: Port, rec: Record, seed: int):
         tmp = Path(tmp)
         t0 = time.perf_counter()
         geno = synth_genotypes(np.random.default_rng(seed), GRM_VARIANTS, n)
+        rec.shared["grm_geno"] = geno
         t1 = time.perf_counter()
         plink.write_bed(str(tmp / "cell"), geno)
         log(f"grm dataset: {GRM_VARIANTS} variants x {n} samples, "
@@ -3898,6 +3949,362 @@ def fmi_build_phase(torch, port: Port, rec: Record, seed: int):
             f"({time.perf_counter() - t0:.1f} s)")
         if not same or int(amb[0].split()[2]) != len(holes) or not holes:
             fail("fmi-build-16m: the written index differs from the card's doubling build")
+        rec.shared["fmi_build"] = {"index": npz, "codes": codes}
+
+
+SHARD_RANKS = 2  # gloo ranks on the one card
+SHARD_DEVICE = "cuda:0"
+SHARD_KMER_READS = 6_400  # kmer-0.25g's first reads: 64 Mbp
+SHARD_CHAIN_W = 64  # the windowed halo's w
+SHARD_CHAIN_HEAD = 6_000  # anchors of the longest call's head held to the oracle
+SHARD_FILE_READS = 256  # reads of fmi-build-16m's genome over its shard files
+SHARD_KERNELS = ("phmm_forward_f32", "phmm_forward_f64", "bsw_extend", "chain_dp", "abea_fill")
+
+
+def shard_poa_round(POA, PO, windows):
+    """poa-64x10x750's first round: each window's graph is its first
+    sequence; the second is aligned to it.  Returns (garr_stack, seq_arr,
+    seq_len, w_cap, a_cap) as ops.poa.round_arrays sizes them."""
+    graphs = []
+    for w in windows:
+        g = PO.PoaGraph()
+        g.add_alignment([], w[0])
+        graphs.append(g)
+    garrs, seq_arr, seq_len, w_cap, a_cap = POA.round_arrays(graphs, [w[1] for w in windows])
+    return {k: np.stack([a[k] for a in garrs]) for k in garrs[0]}, seq_arr, seq_len, w_cap, a_cap
+
+
+def sharded_rank(rank: int, tmp: str, seed: int, device: str):
+    """Phase 26's rank: every sharded path of parallel/dp.py on its share,
+    each path's result and seconds pickled for the main process, with the
+    kernels' launch counts of the rank's whole run."""
+    import torch
+    from genomicsbench_palisade_tpu_torch.cli import phmm as cli_phmm
+    from genomicsbench_palisade_tpu_torch.convert import bsw_batch_from_numpy
+    from genomicsbench_palisade_tpu_torch.index import fmi_index as FI
+    from genomicsbench_palisade_tpu_torch.ops import abea_cuda, bsw_cuda, chain_cuda, phmm_cuda
+    from genomicsbench_palisade_tpu_torch.ops import bsw as W
+    from genomicsbench_palisade_tpu_torch.ops import chain as C
+    from genomicsbench_palisade_tpu_torch.ops import fmi_pipeline as FP
+    from genomicsbench_palisade_tpu_torch.ops import poa as POA
+    from genomicsbench_palisade_tpu_torch.ops.oracle import poa as PO
+    from genomicsbench_palisade_tpu_torch.parallel import dp, mesh as M
+
+    tmp = Path(tmp)
+    mesh = M.make_mesh(SHARD_RANKS, device=device)
+    kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend, chain_cuda.chain_dp,
+               abea_cuda.KERNELS[0]]
+    for k in kernels:
+        k.launches = 0
+    out, secs = {}, {}
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    def step(name, fn):
+        M.barrier(mesh)
+        sync()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+
+    def phmm():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_phmm.main(["-f", str(tmp / "phmm.txt"), "--device", device])
+        return rc, buf.getvalue()
+
+    step("phmm", phmm)
+
+    tb, ptuple = bsw_batch_from_numpy(
+        port_prepare_pairs(W, synth_bsw_bench_pairs(np.random.default_rng(1))), device)
+    step("bsw", lambda: dp.bsw_batch_sharded(mesh, tb, ptuple).cpu().numpy())
+
+    z = np.load(tmp / "chain.npz")
+    call = C.prepare_call(z["x"], z["y"], float(z["avg_qspan"]), int(z["max_dist_x"]),
+                          int(z["max_dist_y"]), int(z["bw"]))
+    step("chain_w_need", lambda: dp.chain_dp_halo_sharded(mesh, call, call["w_need"]))
+    step("chain_w64", lambda: dp.chain_dp_halo_sharded(mesh, call, SHARD_CHAIN_W))
+    hn = shard_chain_head(call)
+    head = C.prepare_call(z["x"][:hn], z["y"][:hn], float(z["avg_qspan"]), int(z["max_dist_x"]),
+                          int(z["max_dist_y"]), int(z["bw"]))
+    step("chain_head", lambda: dp.chain_dp_halo_sharded(mesh, head, head["w_need"]))
+
+    codes = np.load(tmp / "kmer.npy", mmap_mode="r")
+    lengths = np.full(len(codes), codes.shape[1], np.int32)
+    step("kmer", lambda: dp.count_kmers_sharded(mesh, codes, lengths, k=KMER_K,
+                                                return_shard_stats=True))
+
+    geno = np.load(tmp / "grm_geno.npy", mmap_mode="r")
+    g = np.load(tmp / "grm_norm.npz")
+    step("grm", lambda: tuple(t.cpu().numpy() for t in dp.grm_sharded(
+        mesh, geno, g["two_f"], g["inv_stdev"], g["ok"], block=512)))
+
+    garr, seq_arr, seq_len, w_cap, a_cap = shard_poa_round(
+        POA, PO, synth_windows(np.random.default_rng(seed), POA_WINDOWS, POA_SEQS, POA_LEN))
+    step("poa", lambda: dp.poa_align_sharded(mesh, seq_arr, seq_len, garr, POA_PARAMS, w_cap,
+                                             a_cap))
+
+    abatch = pickle.loads((tmp / "abea_batch.pkl").read_bytes())
+    step("abea", lambda: {k: v.cpu().numpy() for k, v in dp.abea_fill_sharded(mesh, abatch).items()})
+
+    f = np.load(tmp / "fmi_small.npz")
+    index = {"cp_occ": np.load(tmp / "fmi_cp_occ.npy", mmap_mode="r"), "count": f["count"],
+             "sentinel_index": int(f["sentinel_index"])}
+    enc, rl = np.load(tmp / "fmi_enc.npy"), f["rl"]
+    step("fmi_search", lambda: tuple(t.cpu().numpy() for t in dp.fmi_backward_search_sharded(
+        mesh, index, np.minimum(enc, 3), rl)))
+
+    def pipeline():
+        res = []
+        for s0 in range(0, len(rl), FMI_BATCH):
+            packed, ovf = dp.fmi_pipeline_index_sharded(
+                mesh, index, enc[s0 : s0 + FMI_BATCH], rl[s0 : s0 + FMI_BATCH],
+                min_seed_len=FMI_MIN_SEED)
+            res.append(FP.collect(packed.cpu().numpy(), bool(ovf), len(rl[s0 : s0 + FMI_BATCH]),
+                                  s0))
+        return res
+
+    step("fmi_pipeline", pipeline)
+
+    def shard_files():
+        man = FI.load_shard_manifest(str(tmp / "idx16m"))
+        shard = FI.load_npz_shard(str(tmp / "idx16m"), rank)
+        fz = np.load(tmp / "fmi16m_reads.npz")
+        packed, ovf = dp.fmi_pipeline_index_sharded(
+            mesh, {"count": man["count"], "sentinel_index": int(man["sentinel_index"])},
+            fz["enc"], fz["rl"], min_seed_len=FMI_MIN_SEED,
+            shard_rows=(shard["cp_occ"], shard["block_start"]))
+        return (shard["block_start"], shard["cp_occ"],
+                FP.collect(packed.cpu().numpy(), bool(ovf), len(fz["rl"])))
+
+    step("fmi_files", shard_files)
+    launches = {k.name: k.launches for k in kernels}
+    with open(tmp / f"rank{rank}.pkl", "wb") as fh:
+        pickle.dump({"out": out, "secs": secs, "launches": launches}, fh)
+
+
+def shard_chain_head(call) -> int:
+    """Anchors of the longest call's head that phase 26 holds to the oracle:
+    at least SHARD_CHAIN_HEAD, and enough that every rank's share covers the
+    call's window (the halo)."""
+    return min(call["n"], max(SHARD_CHAIN_HEAD, SHARD_RANKS * call["w_need"]))
+
+
+def port_prepare_pairs(W, pairs):
+    return W.prepare_pairs(pairs, q_pad=128, t_pad=256)
+
+
+def sharded_single(torch, port, tmp: Path, seed: int, data: dict) -> dict:
+    """The single-rank port runs on the card that phase 26 holds the ranks
+    to (where the earlier phases did not keep them)."""
+    W, C, A, POA, G = port.W, port.C, port.A, port.POA, port.G
+    ref = {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = port.cli.main(["-f", str(tmp / "phmm.txt"), "--device", DEVICE])
+    ref["phmm"] = (rc, buf.getvalue())
+    tb, ptuple = port.bsw_batch_from_numpy(
+        port_prepare_pairs(W, synth_bsw_bench_pairs(np.random.default_rng(1))), DEVICE)
+    ref["bsw"] = W.bsw_extend(tb, ptuple).cpu().numpy()
+    ref["chain_w_need"] = data["chain"]["result"]
+    z = np.load(tmp / "chain.npz")
+    call = C.prepare_call(z["x"], z["y"], float(z["avg_qspan"]), int(z["max_dist_x"]),
+                          int(z["max_dist_y"]), int(z["bw"]))
+    ref["chain_w64"] = C.chain_call(C.window_clamp(call, SHARD_CHAIN_W), DEVICE)
+    hn = shard_chain_head(call)
+    o = port.chain_oracle.chain_dp(port.chain_oracle.ChainCall(
+        hn, float(z["avg_qspan"]), int(z["max_dist_x"]), int(z["max_dist_y"]),
+        int(z["bw"]), 1, z["x"][:hn], z["y"][:hn]))
+    ref["chain_head"] = (o["scores"], o["parents"], o["peak_scores"])
+    codes = data["kmer_codes"]
+    ref["kmer"] = port.K.count_kmers_device(
+        torch.from_numpy(codes.astype(np.int8)).to(DEVICE),
+        torch.full((len(codes),), codes.shape[1], dtype=torch.int32, device=DEVICE), KMER_K)
+    g = np.load(tmp / "grm_norm.npz")
+    sums, counts = G.grm_device(torch.from_numpy(data["grm_geno"]).to(DEVICE),
+                                *(torch.from_numpy(g[k]).to(DEVICE)
+                                  for k in ("two_f", "inv_stdev", "ok")), 512)
+    ref["grm"] = (sums.cpu().numpy(), counts.cpu().numpy())
+    garr, seq_arr, seq_len, w_cap, a_cap = shard_poa_round(
+        POA, port.poa_oracle, synth_windows(np.random.default_rng(seed), POA_WINDOWS, POA_SEQS,
+                                            POA_LEN))
+    from genomicsbench_palisade_tpu_torch.convert import poa_batch_from_numpy
+
+    garrs = [{k: v[i] for k, v in garr.items()} for i in range(len(seq_len))]
+    ai, aj, cnt = POA.poa_align_device(poa_batch_from_numpy(garrs, seq_arr, seq_len, DEVICE),
+                                       POA_PARAMS, w_cap, a_cap)
+    ref["poa"] = np.concatenate([ai, aj, cnt[:, None]], axis=1).astype(np.int32)
+    abatch = pickle.loads((tmp / "abea_batch.pkl").read_bytes())
+    fill = A.abea_fill(port.abea_batch_from_numpy(abatch, DEVICE))
+    ref["abea"] = {k: fill[k].cpu().numpy() for k in ("trace", "bll_e", "last_val", "seed")}
+    # the search has no single-device function of its own: the same one at
+    # one rank, without a group
+    fmi = data["fmi"]
+    ref["fmi_search"] = tuple(t.cpu().numpy() for t in port.dp.fmi_backward_search_sharded(
+        port.mesh.make_mesh(device=DEVICE), fmi["index"], np.minimum(fmi["enc"], 3), fmi["rl"]))
+    ref["fmi_pipeline"] = fmi["results"]
+    ref["fmi_files"] = data["fmi_files_ref"]
+    return ref
+
+
+def same_smems(a, b) -> bool:
+    return smem_tuples(a[0]) == smem_tuples(b[0]) and tuple(a[1:]) == tuple(b[1:])
+
+
+def sharded_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 26: the sharded runtime (parallel/) on SHARD_RANKS gloo ranks
+    that share the card, on the data of the earlier phases, each path
+    against the single-rank port run on the card; then one NCCL rank."""
+    need = {"phmm_testfile": 4, "chain": 8, "fmi": 12, "kmer_codes": 17, "grm_geno": 19,
+            "fmi_build": 24}
+    missing = sorted({v for k, v in need.items() if k not in rec.shared})
+    if missing:
+        fail(f"phase 26 shards the data of phases {missing}: run them too")
+    data = rec.shared
+    M = port.mesh
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = Path(tmp)
+        t_set = time.perf_counter()
+        (tmp / "phmm.txt").write_bytes(data["phmm_testfile"])
+        c = data["chain"]["call"]
+        np.savez(tmp / "chain.npz", x=c.x, y=c.y, avg_qspan=c.avg_qspan,
+                 max_dist_x=c.max_dist_x, max_dist_y=c.max_dist_y, bw=c.bw)
+        np.save(tmp / "kmer.npy", data["kmer_codes"])
+        geno = data["grm_geno"]
+        np.save(tmp / "grm_geno.npy", geno)
+        counts = port.G.allele_counts(geno)
+        freqs = port.G.allele_freqs(*counts)
+        var = 2.0 * freqs * (1.0 - freqs)
+        ok = var > port.G.K_SMALL_EPSILON
+        isd = np.zeros_like(var)
+        isd[ok] = 1.0 / np.sqrt(var[ok])
+        np.savez(tmp / "grm_norm.npz", two_f=(2.0 * freqs).astype(np.float32),
+                 inv_stdev=isd.astype(np.float32), ok=ok)
+        fmi = data["fmi"]
+        np.save(tmp / "fmi_cp_occ.npy", fmi["index"].cp_occ)
+        np.save(tmp / "fmi_enc.npy", fmi["enc"])
+        np.savez(tmp / "fmi_small.npz", count=fmi["index"].count,
+                 sentinel_index=fmi["index"].sentinel_index, rl=fmi["rl"])
+        # fmi-build-16m's index as 2 shard files, and reads of its genome
+        fb = data["fmi_build"]
+        paths = port.fmi_index.save_npz_sharded(fb["index"], str(tmp / "idx16m"), SHARD_RANKS)
+        fenc = synth_reads(fb["codes"], SHARD_FILE_READS, FMI_READ_LEN,
+                           np.random.default_rng(seed + 26))
+        frl = np.full(len(fenc), FMI_READ_LEN, np.int32)
+        np.savez(tmp / "fmi16m_reads.npz", enc=fenc, rl=frl)
+        # abea-bench-128's batch, made once for the ranks and the single run
+        rng = np.random.default_rng(ABEA_SEED)
+        model = synth_model(rng)
+        n_reads, lo_len, hi_len = ABEA_BENCH
+        reads = [synth_read(rng, model, n)
+                 for n in np.linspace(lo_len, hi_len, n_reads).astype(int)]
+        abatch, _ = port.A.prepare_batch([q for q, _ in reads], [e for _, e in reads], model,
+                                         [1.0] * n_reads, [0.0] * n_reads)
+        (tmp / "abea_batch.pkl").write_bytes(pickle.dumps(abatch))
+        findex = port.fmi_index_from_numpy(fb["index"], DEVICE)
+        data["fmi_files_ref"] = port.fmi_pipeline.fmi_pipeline_batch(findex, fenc, frl,
+                                                                     FMI_MIN_SEED)
+        set_s = time.perf_counter() - t_set
+        t0 = time.perf_counter()
+        ref = sharded_single(torch, port, tmp, seed, data)
+        single_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        M.spawn(sharded_rank, SHARD_RANKS, (str(tmp), seed, SHARD_DEVICE), backend="gloo")
+        spawn_s = time.perf_counter() - t0
+        ranks = [pickle.loads((tmp / f"rank{r}.pkl").read_bytes()) for r in range(SHARD_RANKS)]
+        log("sharded set-up " + json.dumps(
+            {"ranks": SHARD_RANKS, "backend": "gloo", "device": SHARD_DEVICE, "data_s": set_s,
+             "single_rank_s": single_s, "spawn_and_run_s": spawn_s,
+             "shard_files": [Path(p).name for p in paths], "card": rec.card}))
+
+        def equal(name, got, want, rank):
+            if name == "phmm":  # rank 0 prints the one-rank run's lines
+                rc, text = got
+                if rank:
+                    return rc == 0 and text == ""
+                return (rc == 0 and want[0] == 0 and len(text.splitlines()) > 1
+                        and text.splitlines()[:-1] == want[1].splitlines()[:-1])
+            if name == "kmer":
+                return got[0] == want
+            if name == "grm":
+                g = got[0] / np.maximum(got[1], 1.0)
+                w = want[0] / np.maximum(want[1], 1.0)
+                return np.array_equal(got[1], want[1]) and np.allclose(g, w, atol=GRM_TOL,
+                                                                          rtol=GRM_TOL)
+            if name == "abea":
+                return all(np.array_equal(got[k], want[k], equal_nan=True) for k in want)
+            if name == "fmi_pipeline":
+                return len(got) == len(want) and all(same_smems(a, b) for a, b in zip(got, want))
+            if name == "fmi_files":
+                return same_smems(got[2], want)
+            return all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(got, want))
+
+        for name in ranks[0]["out"]:
+            same = [equal(name, r["out"][name], ref[name], i) for i, r in enumerate(ranks)]
+            extra = {}
+            if name == "kmer":
+                extra = {"metrics": ranks[0]["out"][name][0],
+                         "shard_occ": ranks[0]["out"][name][1]["occ"].tolist(),
+                         "shard_distinct": ranks[0]["out"][name][1]["distinct"].tolist()}
+            if name == "fmi_files":
+                blk = fb["index"].cp_occ
+                for r in ranks:
+                    start, rows, _ = r["out"][name]
+                    real = blk[start : start + len(rows)]
+                    same.append(np.array_equal(rows[: len(real)], real)
+                                and not rows[len(real):].any())
+            if name == "grm":
+                g = ranks[0]["out"][name]
+                extra = {"max_abs_diff": float(np.abs(
+                    g[0] / np.maximum(g[1], 1.0)
+                    - ref[name][0] / np.maximum(ref[name][1], 1.0)).max()), "tol": GRM_TOL}
+            row = {"path": name, "seconds": [r["secs"][name] for r in ranks],
+                   "equal_to_single_rank": all(same), **extra}
+            log("sharded " + json.dumps(row))
+            if not all(same):
+                fail(f"sharded {name} differs from the single-rank run")
+        launches = {k: [r["launches"][k] for r in ranks] for k in SHARD_KERNELS}
+        log("sharded kernel launches per rank " + json.dumps(launches))
+        if any(min(v) <= 0 for v in launches.values()):
+            fail(f"a rank of the sharded runtime did not launch a kernel: {launches}")
+
+        # the NCCL path: one rank, the collectives on the card
+        if not torch.cuda.is_available():  # a CPU rehearsal
+            return
+        t0 = time.perf_counter()
+        M.init_distributed(f"127.0.0.1:{M.free_port()}", 1, 0, backend="nccl")
+        try:
+            mesh = M.make_mesh(1, device="cuda:0")
+            tb, ptuple = port.bsw_batch_from_numpy(
+                port_prepare_pairs(port.W, synth_bsw_bench_pairs(np.random.default_rng(1))),
+                DEVICE)
+            codes = data["kmer_codes"][:1024]
+            k_got = port.dp.count_kmers_sharded(
+                mesh, codes, np.full(len(codes), codes.shape[1], np.int32), k=KMER_K)
+            k_want = port.K.count_kmers_device(
+                torch.from_numpy(codes.astype(np.int8)).to(DEVICE),
+                torch.full((len(codes),), codes.shape[1], dtype=torch.int32, device=DEVICE),
+                KMER_K)
+            nccl = {"backend": torch.distributed.get_backend(),
+                    "bsw": bool(np.array_equal(port.dp.bsw_batch_sharded(mesh, tb, ptuple)
+                                               .cpu().numpy(), ref["bsw"])),
+                    "kmer": k_got == k_want,
+                    "fmi_search": all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(
+                        port.dp.fmi_backward_search_sharded(
+                            mesh, fmi["index"], np.minimum(fmi["enc"][:FMI_BATCH], 3),
+                            fmi["rl"][:FMI_BATCH]), (v[:FMI_BATCH] for v in ref["fmi_search"])))}
+        finally:
+            M.shutdown()
+        nccl["seconds"] = time.perf_counter() - t0
+        log("sharded nccl " + json.dumps(nccl))
+        if not (nccl["bsw"] and nccl["kmer"] and nccl["fmi_search"]):
+            fail(f"the NCCL rank differs from the single-rank run: {nccl}")
 
 
 def native_engines_phase(rec: Record):
@@ -4093,6 +4500,7 @@ def fmi_phase(torch, port: Port, rec: Record, seed: int):
                 fail("a second run of the fmi main path gave other results")
         if not np.array_equal(prep.enc, enc_np):
             fail("the fmi CLI's prepare encoded other reads than were written")
+        rec.shared["fmi"] = {"index": didx, "enc": prep.enc, "rl": prep.rl, "results": results}
         med = int(np.argsort(runs_s)[1])
         st = run_stats[med]
         n_phase = [sum(r[i] for r in results) for i in (1, 2, 3)]
@@ -4459,7 +4867,13 @@ def chain_roofline_phase(torch, port: Port, rec: Record):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="all",
+                    help="comma-separated phase numbers to run (default: all); 1, 2 and 15 "
+                         "always run, and a phase function runs if any of its numbers is "
+                         "named (phase 26 needs 4, 8, 12, 17, 19 and 24); a run of some phases "
+                         "prints no kernels line")
     args = ap.parse_args(argv)
+    wanted = None if args.phases == "all" else {int(p) for p in args.phases.split(",")}
 
     import torch
 
@@ -4514,29 +4928,33 @@ def main(argv=None) -> int:
     # the fmi engine is launch-bound, and every launch after a torch.profiler
     # trace costs more (PERF.md §6): phases 11-12 run before any profile
     phase_s = {}  # each phase function's wall seconds, for the script's time budget
-    for fn, args_ in ((occ_phase, (torch, port, rec, args.seed)),
-                      (fmi_phase, (torch, port, rec, args.seed)),
-                      (phmm_phases, (torch, port, rec, args.seed)),
-                      (bsw_phases, (torch, port, rec, args.seed)),
-                      (chain_phases, (torch, port, rec, args.seed)),
-                      (abea_phases, (torch, port, rec, args.seed)),
-                      (eventalign_phase, (torch, port, rec, args.seed)),
-                      (kmer_phase, (torch, port, rec, args.seed)),
-                      (poa_phase, (torch, port, rec, args.seed)),
-                      (grm_phase, (torch, port, rec, args.seed)),
-                      (basecall_phase, (torch, port, rec, args.seed)),
-                      (clair_phase, (torch, port, rec, args.seed)),
-                      (dbg_phase, (torch, port, rec, args.seed)),
-                      (pileup_phase, (torch, port, rec, args.seed)),
-                      (fmi_build_phase, (torch, port, rec, args.seed)),
-                      (native_engines_phase, (rec,)),
-                      (bsw_roofline_phase, (torch, port, rec, args.seed)),
-                      (chain_roofline_phase, (torch, port, rec))):
+    std = (torch, port, rec, args.seed)
+    for numbers, fn, args_ in (((11,), occ_phase, std), ((12,), fmi_phase, std),
+                               ((3, 4), phmm_phases, std), ((5, 6), bsw_phases, std),
+                               ((7, 8), chain_phases, std), ((9, 10), abea_phases, std),
+                               ((16,), eventalign_phase, std), ((17,), kmer_phase, std),
+                               ((18,), poa_phase, std), ((19,), grm_phase, std),
+                               ((20,), basecall_phase, std), ((21,), clair_phase, std),
+                               ((22,), dbg_phase, std), ((23,), pileup_phase, std),
+                               ((24,), fmi_build_phase, std), ((25,), native_engines_phase, (rec,)),
+                               ((26,), sharded_phase, std), ((13,), bsw_roofline_phase, std),
+                               ((14,), chain_roofline_phase, (torch, port, rec))):
+        if wanted is not None and not wanted & set(numbers):
+            continue
         t0 = time.perf_counter()
         fn(*args_)
         phase_s[fn.__name__] = time.perf_counter() - t0
+        if fn is sharded_phase:
+            rec.shared.clear()
     abea_chain_lines(rec)
     log("phase seconds " + json.dumps(phase_s))
+    if wanted is not None:
+        log(f"phases {sorted(wanted)} only: no kernels line")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # 15. the kernels line, the card, the last line
     where = {"phmm_forward_f32": (SOURCE, REPLACES), "phmm_forward_f64": (SOURCE, REPLACES),

@@ -26,7 +26,10 @@ CLI's host engine (`cli.fmi --engine host`); `utils.timing.KernelTimer`.
 `io.native` binds the JAX package's other native host engines too: the
 readers, event detection, the eventalign QC, realign and emit, the CTC
 beam, the minimizer walk, and the host engines of poa, kmer, abea and the
-phmm f64 pass.
+phmm f64 pass.  The sharded runtime (`parallel`: a rank a device in a
+torch.distributed group, the nine sharded paths with their collectives;
+the sharded index files in `index.fmi_index`) and the driver entry points
+(`entry`: the PairHMM forward step, `dryrun_multichip`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU and no explicit device they raise.  Kernels are built at first use,

@@ -30,6 +30,7 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .. import default_device
 from ..convert import fmi_index_from_numpy
@@ -37,6 +38,7 @@ from ..index import fmi_index as FI
 from ..io.fastq import read_all, read_codes
 from ..io.native import fmi_search_native
 from ..ops import fmi_pipeline as FP
+from ..parallel.mesh import shard_work_imbalance
 
 
 def load_index(path: str) -> FI.DeviceFmIndex:
@@ -46,19 +48,6 @@ def load_index(path: str) -> FI.DeviceFmIndex:
         return FI.load_bwt2bit64(path)
     seq = "".join(s for _n, s, _q in read_all(path))
     return FI.build_from_sequence(seq.upper().replace("N", "A"))
-
-
-def shard_work_imbalance(work_per_item, n_shards: int) -> float:
-    """The reference's maxTicks/avgTicks load imbalance (fmi.cpp:362-370),
-    statically sharded: item work is assigned round-robin to shards;
-    returns max/avg shard work (genomicsbench_palisade_tpu/parallel/mesh.py
-    :83-92)."""
-    work = np.asarray(work_per_item, np.float64)
-    shard_tot = np.zeros(n_shards)
-    for i, w in enumerate(work):
-        shard_tot[i % n_shards] += w
-    avg = shard_tot.mean()
-    return float(shard_tot.max() / avg) if avg > 0 else 1.0
 
 
 @dataclass
@@ -164,16 +153,19 @@ def main(argv=None):
         batch_totals.append(n1 + n2 + n3)
     if len(dts) > 1:
         print("repeat Consumed: " + ", ".join(f"{d:.4f}" for d in dts) + " sec")
-    report(batch_totals, min(dts))
+    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
+    report(batch_totals, min(dts), min(n_devices, max(len(batch_totals), 1)))
     if args.print_output:
         print_output(results)
     return 0
 
 
-def report(batch_totals, consumed_s: float):
-    """The reference driver's metric lines (fmi.cpp:351-381).  One device
-    (or the host) runs every batch: one shard."""
-    print(f"load imbalance = {shard_work_imbalance(batch_totals, 1):f}")
+def report(batch_totals, consumed_s: float, n_shards: int = 1):
+    """The reference driver's metric lines (fmi.cpp:351-381).  The load
+    imbalance counts the batches round-robin over n_shards shards: the
+    device engine's local devices, at most one a batch (as the JAX CLI
+    counts them); the host engine is one shard."""
+    print(f"load imbalance = {shard_work_imbalance(batch_totals, n_shards):f}")
     print(f"Consumed: {consumed_s:.4f} sec")
     for bi, bt in enumerate(batch_totals):
         print(f"batch_id: {bi}, numTotalSmem[batch_id]: {bt}")

@@ -24,6 +24,13 @@
 // the result is bit-equal to the oracle, the JAX scan and the plain
 // PyTorch version.
 //
+// A call may start past a preset head (`first`, per call; null for none):
+// rows [0, first) of `out` hold its anchors' results already and are read,
+// not recomputed.  This is how a shard of one call runs in the sharded
+// runtime: the previous shard's last w anchors, then its own.  The register
+// banks then start from the preset rows first-1 .. first-96, and the peak
+// chain from row first-1.
+//
 // Design.  A warp takes one call (a block of one warp each, launched in
 // order of call length, longest first): the anchors of a call form one
 // dependent chain, and calls are independent.  For anchor i the warp visits
@@ -199,9 +206,9 @@ __global__ void __launch_bounds__(32)
 chain_dp_kernel(const int32_t* __restrict__ x_lo, const int32_t* __restrict__ qi,
                 const int32_t* __restrict__ qspan, const int32_t* __restrict__ st_eff,
                 const int64_t* __restrict__ off, const int32_t* __restrict__ n_anchors,
-                const int32_t* __restrict__ gap_table, const int32_t* __restrict__ order,
-                int32_t* __restrict__ out, int64_t n_total, int max_dist_x, int max_dist_y,
-                int bw) {
+                const int32_t* __restrict__ gap_table, const int32_t* __restrict__ first,
+                const int32_t* __restrict__ order, int32_t* __restrict__ out, int64_t n_total,
+                int max_dist_x, int max_dist_y, int bw) {
   extern __shared__ int32_t smem[];
   int32_t* gap = smem;  // bw + 1 entries
   unsigned* marks = reinterpret_cast<unsigned*>(smem + bw + 1);  // kMarkWords
@@ -222,23 +229,29 @@ chain_dp_kernel(const int32_t* __restrict__ x_lo, const int32_t* __restrict__ qi
   __syncwarp();
   const unsigned upto_me = (2u << lane) - 1;  // lanes 0..lane
 
+  // the first anchor to compute: rows before it are preset
+  const int i0 = first == nullptr ? 0 : min(max(first[c], 0), n);
+
   // bank b, lane k: predecessor j = i-1-32b-k of the current anchor i
   Pred bank[kBanks];
 #pragma unroll
-  for (int b = 0; b < kBanks; ++b) bank[b] = Pred{0, 0, 0, -1};
+  for (int b = 0; b < kBanks; ++b) {
+    const int j = i0 - 1 - 32 * b - lane;
+    bank[b] = j >= 0 ? Pred{xs[j], qs[j], scores[j], parents[j]} : Pred{0, 0, 0, -1};
+  }
   // the anchor whose peak waits for its load
   bool pend = false;
-  int pend_f = 0, pend_pk = 0, prev_peak = 0;
+  int pend_f = 0, pend_pk = 0, prev_peak = i0 > 0 ? peaks[i0 - 1] : 0;
   // anchor i's own values, loaded an anchor ahead
   uint32_t ax = 0, aq = 0;
   int aspan = 0, ast = 0;
-  if (n > 0) {
-    ax = xs[0];
-    aq = qs[0];
-    aspan = spans[0];
-    ast = starts[0];
+  if (i0 < n) {
+    ax = xs[i0];
+    aq = qs[i0];
+    aspan = spans[i0];
+    ast = starts[i0];
   }
-  for (int i = 0; i < n; ++i) {
+  for (int i = i0; i < n; ++i) {
     const uint32_t x_i = ax, q_i = aq;
     const int span_i = aspan;
     const int win = i - ast;  // predecessors in the window
@@ -316,12 +329,13 @@ extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // Per anchor (n_total): x_lo, qi, qspan, st_eff (st_eff[i] >= i - 5000);
-// per call (n_calls): off, n, gap_table [n_calls, bw+1], order (a
-// permutation of the calls); out: 3 * n_total int32.
+// per call (n_calls): off, n, gap_table [n_calls, bw+1], first (null, or
+// the preset rows of each call, which `out` holds), order (a permutation
+// of the calls); out: 3 * n_total int32.
 int chain_dp(const int32_t* x_lo, const int32_t* qi, const int32_t* qspan,
              const int32_t* st_eff, const int64_t* off, const int32_t* n, const int32_t* gap_table,
-             const int32_t* order, int32_t* out, int n_calls, int64_t n_total, int max_dist_x,
-             int max_dist_y, int bw, void* stream) {
+             const int32_t* first, const int32_t* order, int32_t* out, int n_calls,
+             int64_t n_total, int max_dist_x, int max_dist_y, int bw, void* stream) {
   if (n_calls <= 0 || n_total <= 0) return 0;
   if (bw < 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = (static_cast<size_t>(bw) + 1 + kMarkWords) * sizeof(int32_t);
@@ -331,8 +345,8 @@ int chain_dp(const int32_t* x_lo, const int32_t* qi, const int32_t* qspan,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   chain_dp_kernel<<<n_calls, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      x_lo, qi, qspan, st_eff, off, n, gap_table, order, out, n_total, max_dist_x, max_dist_y,
-      bw);
+      x_lo, qi, qspan, st_eff, off, n, gap_table, first, order, out, n_total, max_dist_x,
+      max_dist_y, bw);
   return static_cast<int>(cudaGetLastError());
 }
 

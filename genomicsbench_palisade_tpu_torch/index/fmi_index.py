@@ -1,8 +1,8 @@
 """FM-index loading and the port's occ layout.
 
-Port of genomicsbench_palisade_tpu/index/fmi_index.py:32-181 and the
-suffix-array lookups :289-357 (the sharded files, `:184-287`, are not
-ported yet: ROADMAP queue 1 item 12).  Reference index format
+Port of genomicsbench_palisade_tpu/index/fmi_index.py: the loaders, the
+sharded on-disk index (`save_npz_sharded` and its readers, in the JAX
+package's file format) and the suffix-array lookups.  Reference index format
 `.bwt.2bit.64` (tools/bwa-mem2/src/FMI_search.cpp:176-356 build_fm_index,
 :469-588 load_index):
     int64   ref_seq_len              (= 2*L + 1, fwd + revcomp + sentinel)
@@ -136,6 +136,98 @@ def load_npz(path: str) -> DeviceFmIndex:
     )
     idx._npz_path = path
     return idx
+
+
+# ---------------------------------------------------------------------------
+# sharded on-disk index (a file a rank, for the block-range-sharded search)
+# ---------------------------------------------------------------------------
+#
+# The JAX package's format, so either package reads the other's files:
+#   {prefix}.manifest.npz         the small arrays and the shard geometry
+#   {prefix}.shard{i}-of-{n}.npz  cp_count, one_hot_hi, one_hot_lo of blocks
+#                                 [i*R, (i+1)*R) and the matching SA samples
+# Every shard holds R = rows_per_shard rows, the tail zero-padded, with R
+# rounded up to a multiple of 8.
+
+
+def save_npz_sharded(idx: DeviceFmIndex, prefix: str, n_shards: int,
+                     names=None, lengths=None) -> list[str]:
+    """Write the index as a manifest and n_shards block-range shard files.
+    Returns the paths written, the manifest first."""
+    blocks = idx.cp_occ.shape[0]
+    rows = -(-blocks // n_shards)
+    rows = (rows + 7) & ~7
+    n_sa = 0 if idx.sa_ms_byte is None else len(idx.sa_ms_byte)
+    sa_rows = -(-n_sa // n_shards) if n_sa else 0
+    extra = {}
+    if names is not None:
+        extra["contig_names"] = np.asarray(names, dtype=object)
+        extra["contig_lengths"] = np.asarray(lengths, np.int64)
+    paths = [f"{prefix}.manifest.npz"]
+    np.savez_compressed(paths[0], ref_seq_len=idx.ref_seq_len, count=idx.count,
+                        sentinel_index=idx.sentinel_index, n_shards=n_shards, blocks=blocks,
+                        rows_per_shard=rows, n_sa=n_sa, sa_rows_per_shard=sa_rows,
+                        sa_compression=np.bool_(idx.sa_compression), **extra)
+
+    def pad(a, want):
+        out = np.zeros((want,) + a.shape[1:], a.dtype)
+        out[: min(len(a), want)] = a[:want]
+        return out
+
+    hi, lo = split_one_hot(idx.cp_occ)
+    for i in range(n_shards):
+        b = slice(i * rows, (i + 1) * rows)
+        shard = {"cp_count": pad(idx.cp_count[b], rows), "one_hot_hi": pad(hi[b], rows),
+                 "one_hot_lo": pad(lo[b], rows)}
+        if n_sa:
+            s = slice(i * sa_rows, (i + 1) * sa_rows)
+            shard["sa_ms_byte"] = pad(idx.sa_ms_byte[s], sa_rows)
+            shard["sa_ls_word"] = pad(idx.sa_ls_word[s], sa_rows)
+        paths.append(f"{prefix}.shard{i}-of-{n_shards}.npz")
+        np.savez_compressed(paths[-1], **shard)
+    return paths
+
+
+def load_shard_manifest(prefix: str) -> dict:
+    z = np.load(f"{prefix}.manifest.npz", allow_pickle=True)
+    return {k: z[k] for k in z.files}
+
+
+def load_npz_shard(prefix: str, shard: int) -> dict:
+    """One rank's slice: {"cp_occ" int64 [R, 8] (the port's rows of blocks
+    block_start .. block_start + R), "block_start", and with SA samples
+    "sa_ms_byte", "sa_ls_word", "sa_start"}.  (The JAX package returns its
+    u32 cp_pack and the planes in place of cp_occ.)"""
+    man = load_shard_manifest(prefix)
+    n = int(man["n_shards"])
+    z = np.load(f"{prefix}.shard{shard}-of-{n}.npz")
+    out = {"cp_occ": pack_cp_occ(z["cp_count"], z["one_hot_hi"], z["one_hot_lo"]),
+           "block_start": shard * int(man["rows_per_shard"])}
+    if "sa_ms_byte" in z.files:
+        out.update(sa_ms_byte=z["sa_ms_byte"], sa_ls_word=z["sa_ls_word"],
+                   sa_start=shard * int(man["sa_rows_per_shard"]))
+    return out
+
+
+def load_npz_sharded(prefix: str) -> DeviceFmIndex:
+    """The whole index, reassembled from its shard files."""
+    man = load_shard_manifest(prefix)
+    n, blocks, n_sa = int(man["n_shards"]), int(man["blocks"]), int(man["n_sa"])
+    shards = [np.load(f"{prefix}.shard{i}-of-{n}.npz") for i in range(n)]
+
+    def cat(key):
+        return np.concatenate([z[key] for z in shards])
+
+    return DeviceFmIndex(
+        ref_seq_len=int(man["ref_seq_len"]),
+        count=man["count"].astype(np.int64),
+        sentinel_index=int(man["sentinel_index"]),
+        cp_occ=pack_cp_occ(cat("cp_count")[:blocks], cat("one_hot_hi")[:blocks],
+                           cat("one_hot_lo")[:blocks]),
+        sa_ms_byte=cat("sa_ms_byte")[:n_sa] if n_sa else None,
+        sa_ls_word=cat("sa_ls_word")[:n_sa] if n_sa else None,
+        sa_compression=bool(man["sa_compression"]),
+    )
 
 
 # ---------------------------------------------------------------------------

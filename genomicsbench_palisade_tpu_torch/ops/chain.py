@@ -32,6 +32,14 @@ running max), the `targets[parents[j]] = i` marks a `scatter_reduce`, and
 the 0-clamped max_skip counter a reflected walk (`cumsum`, `torch.cummin`)
 whose first excess is the break.  Every value is int32, so kernel, plain
 version, JAX scan and oracle agree bit for bit.
+
+A batch may carry "first" [C] int32: rows [0, first) of each call are then
+preset in the `out` the caller gives (its scores, call-local parents and
+peaks) and not recomputed, and the anchors from `first` on are computed
+after them.  A shard of one call in the sharded runtime
+(parallel/dp.chain_dp_halo_sharded) is the previous shard's last w anchors,
+preset, then its own.  `window_clamp` limits each anchor's predecessors to
+its last w, as the JAX scan's window does.
 """
 
 from __future__ import annotations
@@ -106,15 +114,27 @@ def x_lo_to_i32(y):
     return (y & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
 
 
+def window_clamp(prep: dict, w: int) -> dict:
+    """The call with each anchor's predecessors limited to its last w
+    (st_eff[i] = max(st_eff[i], i - w)): the JAX scan's window of w
+    (`in_win`, genomicsbench_palisade_tpu/ops/chain.py:135).  At
+    w >= w_need the call is unchanged."""
+    st = np.maximum(np.asarray(prep["st_eff"]), np.arange(prep["n"]) - w).astype(np.int32)
+    w_need = int(np.max(np.arange(prep["n"]) - st)) if prep["n"] else 0
+    return {**prep, "st_eff": st, "w_need": w_need}
+
+
 def window_size(w_need: int) -> int:
     """The plain version's window: the next power of two >= w_need, at
     least MIN_WINDOW (the JAX package's rule, ops/chain.py:268-270)."""
     return max(1 << max(int(w_need) - 1, 0).bit_length(), MIN_WINDOW)
 
 
-def chain_dp_plain(batch, params, stats: dict | None = None) -> torch.Tensor:
+def chain_dp_plain(batch, params, stats: dict | None = None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """The plain PyTorch version: [3, N] int32 (scores, call-local parents,
-    peaks) on the batch's device.
+    peaks) on the batch's device.  With "first" in the batch, `out` holds
+    the preset rows [0, first) of each call; the rest are written into it.
 
     Pads the flat batch to [C, n_max] and takes one step per anchor index
     over a [C, w] window.  The padded arrays are kept in reverse anchor
@@ -130,7 +150,12 @@ def chain_dp_plain(batch, params, stats: dict | None = None) -> torch.Tensor:
     off, n = batch["off"], batch["n"]
     dev = n.device
     n_total = batch["x_lo"].shape[0]
-    out = torch.zeros((3, n_total), dtype=torch.int32, device=dev)
+    first = batch.get("first")
+    if first is None:  # no preset rows
+        first = torch.zeros_like(n)
+        out = torch.zeros((3, n_total), dtype=torch.int32, device=dev)
+    elif out is None:
+        raise ValueError("a batch with `first` needs `out` with the preset rows")
     c = n.shape[0]
     if c == 0 or n_total == 0:
         return out
@@ -156,13 +181,19 @@ def chain_dp_plain(batch, params, stats: dict | None = None) -> torch.Tensor:
     scores = torch.zeros((c, n_max + w), dtype=torch.int32, device=dev)
     parents = torch.full((c, n_max + w), -1, dtype=torch.int32, device=dev)
     peaks = torch.zeros((c, n_max + w), dtype=torch.int32, device=dev)
+    # the preset rows, where the window reads them
+    first = first.to(torch.int64)
+    preset = valid & (k[None, :] < first[:, None])
+    for state, row, fill in ((scores, 0, 0), (parents, 1, -1), (peaks, 2, 0)):
+        state[:, :n_max] = torch.where(preset, out[row][idx], fill).flip(1)
+    i0 = int(first.min())
     t_idx = torch.arange(w, dtype=torch.int32, device=dev)  # slot t: j = i-1-t
     neg_col = torch.full((c, 1), NEG, dtype=torch.int32, device=dev)
     visits = torch.zeros(c, dtype=torch.int64, device=dev)
     eligible_n = torch.zeros((), dtype=torch.int64, device=dev)
     breaks = torch.zeros((), dtype=torch.int64, device=dev)
 
-    for i in range(n_max):
+    for i in range(i0, n_max):
         lo = n_max - i
         win = slice(lo, lo + w)
         qspan_i = qspan[:, i : i + 1]
@@ -204,12 +235,12 @@ def chain_dp_plain(batch, params, stats: dict | None = None) -> torch.Tensor:
         max_j = torch.where(has, i - 1 - t_best, -1)
         peak_parent = peaks.gather(1, (n_max - 1 - max_j)[:, None].long())[:, 0]
         peak = torch.where((max_j >= 0) & (peak_parent > max_f), peak_parent, max_f)
-        scores[:, lo - 1] = max_f
-        parents[:, lo - 1] = max_j
-        peaks[:, lo - 1] = peak
+        keep = i < first
+        for state, new in ((scores, max_f), (parents, max_j), (peaks, peak)):
+            state[:, lo - 1] = torch.where(keep, state[:, lo - 1], new)
 
         if stats is not None:
-            live = i < n
+            live = (i < n) & (i >= first)
             visits += torch.where(live, torch.where(brk_t < w, brk_t + 1, span_i[:, 0]), 0)
             eligible_n += (eligible & (t_idx[None, :] <= brk_t[:, None]) & live[:, None]).sum()
             breaks += (live & (brk_t < w)).sum()
@@ -226,15 +257,16 @@ def chain_dp_plain(batch, params, stats: dict | None = None) -> torch.Tensor:
     return out
 
 
-def chain_dp(batch, params) -> torch.Tensor:
+def chain_dp(batch, params, out: torch.Tensor | None = None) -> torch.Tensor:
     """[3, N] int32 (scores, call-local parents, peaks) on the batch's
     device: the CUDA kernel for CUDA tensors (it launches or raises), the
-    plain version for CPU tensors."""
+    plain version for CPU tensors.  A batch with "first" needs `out`, the
+    preset rows, which both write the other rows into."""
     dev = batch["n"].device
     if dev.type == "cuda":
-        return chain_cuda.chain_dp(batch, params)
+        return chain_cuda.chain_dp(batch, params, out)
     if dev.type == "cpu":
-        return chain_dp_plain(batch, params)
+        return chain_dp_plain(batch, params, out=out)
     raise ValueError(f"unsupported device {dev}")
 
 

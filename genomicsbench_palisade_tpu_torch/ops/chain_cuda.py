@@ -28,7 +28,7 @@ class ChainDpKernel(CudaKernel):
 
     def __init__(self):
         super().__init__("chain_dp", SOURCE,
-                         [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int64]
+                         [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int64]
                          + [ctypes.c_int] * 3 + [ctypes.c_void_p],
                          "chain_error_string")
 
@@ -43,21 +43,32 @@ class ChainDpKernel(CudaKernel):
                 "gap_table": (c, params[2] + 1)}
         for k, dtype in BATCH_DTYPES.items():
             check_tensor(self.name, k, batch[k], dev, dtype, want[k])
+        if "first" in batch:
+            check_tensor(self.name, "first", batch["first"], dev, torch.int32, (c,))
         return dev, c, n_total
 
-    def __call__(self, batch, params) -> torch.Tensor:
+    def __call__(self, batch, params, out: torch.Tensor | None = None) -> torch.Tensor:
         """[3, N] int32 (scores, call-local parents, peaks) for the flat
         batch (see ops.chain).  The batch's `off` and `n` must describe
         calls that lie inside the N anchors, and st_eff[i] must be at least
-        i - MAX_ITER (prepare_call's clamp): the kernel trusts them."""
+        i - MAX_ITER (prepare_call's clamp): the kernel trusts them.  With
+        "first" [C] int32 in the batch, `out` must hold each call's preset
+        rows [0, first); the kernel writes the rest into it."""
         dev, c, n_total = self._check(batch, params)
-        out = torch.empty((3, n_total), dtype=torch.int32, device=dev)
+        first = batch.get("first")
+        if first is None:
+            out = torch.empty((3, n_total), dtype=torch.int32, device=dev)
+        elif out is None:
+            raise ValueError(f"{self.name}: a batch with `first` needs `out` with the preset rows")
+        else:
+            check_tensor(self.name, "out", out, dev, torch.int32, (3, n_total))
         if c == 0 or n_total == 0:
             return out
         # a warp a call, in order of call length, longest first: the
         # longest chains start first
         order = torch.argsort(batch["n"], descending=True, stable=True).to(torch.int32)
-        self.launch(dev, *(batch[k].data_ptr() for k in BATCH_DTYPES), order.data_ptr(),
+        self.launch(dev, *(batch[k].data_ptr() for k in BATCH_DTYPES),
+                    None if first is None else first.data_ptr(), order.data_ptr(),
                     out.data_ptr(), c, n_total, *params)
         return out
 

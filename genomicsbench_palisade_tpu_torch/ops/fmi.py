@@ -29,12 +29,24 @@ The JAX `while_loop`s become Python loops whose condition is one
 `bool(run.any())` a step: that is the only host synchronisation inside a
 loop, and `stats` counts the steps (= syncs) and the occ rows gathered.
 
+An index sharded by block range over a group (parallel/dp.py) carries
+"shard_axis", a `ShardAxis`: its `cp_occ` holds only this rank's rows, and
+`occ_all` takes the JAX package's psum route: the owner rank gathers the
+row, the others give zeros, and one sum over the ranks (the axis's
+`reduce`, an all-reduce the caller builds) of the int64 rows broadcasts it
+(exact: zeros add nothing to the bit patterns).  Every
+loop's condition comes from the reads and the occ counts, which are the
+same on every rank, so the ranks take the same steps and meet in the same
+collectives.
+
 Not ported: the three-plane occ route without packed rows (every index the
-port builds carries `cp_occ`) and the `ShardAxis` psum route of a
-block-sharded index (ROADMAP queue 1 item 12).
+port builds carries `cp_occ`).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -62,10 +74,31 @@ def top_mask(y: torch.Tensor) -> torch.Tensor:
     return torch.where(y > 0, _TOP_BIT >> (y - 1).clamp(min=0), 0)
 
 
+@dataclass(frozen=True)
+class ShardAxis:
+    """The block-range shard an index dict's `cp_occ` holds: blocks
+    [block_start, block_start + rows) of the whole index on this rank; the
+    other ranks hold the other ranges.  `reduce` sums a tensor over the
+    ranks and returns the sum on every rank (JAX's psum over the axis)."""
+
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+    block_start: int
+    rows: int
+
+
 def occ_all(index, pp, stats=None):
     """occ(pp, c) for all four bases: pp [...] int64 -> [..., 4] (GET_OCC,
-    FMI_search.h:81-89): one cp_occ row a position."""
-    row = index["cp_occ"][pp >> 6]  # [..., 8]
+    FMI_search.h:81-89): one cp_occ row a position.  With "shard_axis" in
+    the index, the row's owner rank gathers it and one all-reduce
+    broadcasts it."""
+    shard = index.get("shard_axis")
+    if shard is None:
+        row = index["cp_occ"][pp >> 6]  # [..., 8]
+    else:
+        loc = (pp >> 6) - shard.block_start
+        mine = (loc >= 0) & (loc < shard.rows)
+        row = index["cp_occ"][loc.clamp(0, shard.rows - 1)]
+        row = shard.reduce(torch.where(mine[..., None], row, 0))
     if stats is not None:
         stats["occ_rows"] = stats.get("occ_rows", 0) + pp.numel()
     mask = top_mask(pp & 63)[..., None]

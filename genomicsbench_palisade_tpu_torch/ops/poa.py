@@ -72,6 +72,9 @@ DEVICE_BUDGET = 16_000_000_000
 MODE_NORMAL, MODE_EL, MODE_EU = 0, 1, 2
 
 
+_ACGT = {ch: i for i, ch in enumerate("ACGT")}  # sequence and graph codes on the device
+
+
 def _i32(x: int) -> int:
     """x wrapped to int32, as a JAX int32 constant expression wraps."""
     return (int(x) + (1 << 31)) % (1 << 32) - (1 << 31)
@@ -499,6 +502,32 @@ def poa_align_device(batch: dict, params, w_cap: int, a_cap: int, atype: str = "
                                "passes a row")
 
 
+def round_caps(graphs, seqs):
+    """(n_cap, w_cap, a_cap) of a lockstep round as the JAX package sizes
+    them: powers of two of at least 8 over the most nodes and the longest
+    sequence, and room for every node and base in an alignment."""
+    n_cap = max(8, int(2 ** np.ceil(np.log2(max(len(g.nodes) for g in graphs) + 1))))
+    w_cap = max(8, int(2 ** np.ceil(np.log2(max(len(s) for s in seqs) + 2))))
+    return n_cap, w_cap, n_cap + w_cap + 4
+
+
+def round_arrays(graphs, seqs, p_cap: int = 16):
+    """A round's host arrays at `round_caps`: each graph in rank space
+    (graph_to_arrays) and each sequence's ACGT codes (others 9).  Returns
+    (garrs, seq_arr [B, w_cap - 1], seq_len [B], w_cap, a_cap); a graph
+    with more than p_cap predecessors a node raises."""
+    n_cap, w_cap, a_cap = round_caps(graphs, seqs)
+    garrs = [graph_to_arrays(g, n_cap, p_cap, code_map=_ACGT) for g in graphs]
+    if any(a is None for a in garrs):
+        raise ValueError(f"a graph has more than {p_cap} predecessors a node")
+    seq_arr = np.zeros((len(seqs), w_cap - 1), np.int32)
+    seq_len = np.zeros(len(seqs), np.int32)
+    for i, s in enumerate(seqs):
+        seq_arr[i, : len(s)] = [_ACGT.get(ch, 9) for ch in s]
+        seq_len[i] = len(s)
+    return garrs, seq_arr, seq_len, w_cap, a_cap
+
+
 def align_batch(graphs, seqs, params=(2, -4, -6, -2, -25, -1), n_cap=None, p_cap=16,
                 w_cap=None, a_cap=None, align_type: str = "nw", device=None,
                 cache: dict | None = None, stats: dict | None = None):
@@ -517,14 +546,12 @@ def align_batch(graphs, seqs, params=(2, -4, -6, -2, -25, -1), n_cap=None, p_cap
     device = default_device(device)
     stats = {} if stats is None else stats
     t0 = time.perf_counter()
-    code_map = {ch: i for i, ch in enumerate("ACGT")}
+    code_map = _ACGT
     b = len(graphs)
-    if n_cap is None:
-        n_cap = max(8, int(2 ** np.ceil(np.log2(max(len(g.nodes) for g in graphs) + 1))))
-    if w_cap is None:
-        w_cap = max(8, int(2 ** np.ceil(np.log2(max(len(s) for s in seqs) + 2))))
-    if a_cap is None:
-        a_cap = n_cap + w_cap + 4
+    auto_n, auto_w, _ = round_caps(graphs, seqs)
+    n_cap = auto_n if n_cap is None else n_cap
+    w_cap = auto_w if w_cap is None else w_cap
+    a_cap = n_cap + w_cap + 4 if a_cap is None else a_cap
 
     out = [None] * b
     on_device, garrs = [], []

@@ -377,7 +377,9 @@ int main(int argc, char** argv) {
   run_bsw(codes.data(), q_off.data(), q_len.data(), t_off.data(), t_len.data(), h0.data(),
           out.data(), batch, q_max, static_cast<int>(head[3]), p);
 #else
-  const auto head = read<int64_t>(f, 5);  // anchors, calls, max_dist_x, max_dist_y, bw
+  // anchors, calls, max_dist_x, max_dist_y, bw, preset (1: `first` and the
+  // preset out follow the order)
+  const auto head = read<int64_t>(f, 6);
   const int64_t n_total = head[0];
   const int calls = static_cast<int>(head[1]);
   const int bw = static_cast<int>(head[4]);
@@ -389,12 +391,18 @@ int main(int argc, char** argv) {
   const auto n = read<int32_t>(f, calls);
   const auto gap = read<int32_t>(f, static_cast<size_t>(calls) * (bw + 1));
   const auto order = read<int32_t>(f, calls);
-  out.assign(3 * static_cast<size_t>(n_total), -777);
+  std::vector<int32_t> first;
+  if (head[5]) {
+    first = read<int32_t>(f, calls);
+    out = read<int32_t>(f, 3 * static_cast<size_t>(n_total));
+  } else {
+    out.assign(3 * static_cast<size_t>(n_total), -777);
+  }
   for (int b = 0; b < calls; ++b) {
     emu_run_warp(b, 32, 0, [&] {
       chain_dp_kernel(x.data(), q.data(), span.data(), st.data(), off.data(), n.data(), gap.data(),
-                      order.data(), out.data(), n_total, static_cast<int>(head[2]),
-                      static_cast<int>(head[3]), bw);
+                      head[5] ? first.data() : nullptr, order.data(), out.data(), n_total,
+                      static_cast<int>(head[2]), static_cast<int>(head[3]), bw);
     });
   }
 #endif

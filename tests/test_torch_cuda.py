@@ -377,6 +377,29 @@ def test_chain_edge_calls_kernel_equal_to_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("first", [1, 40, 200])
+def test_chain_preset_head_kernel_equal_to_plain(cuda, first):
+    """The `first` entry (the sharded runtime's halo): each call's rows
+    [0, first) preset from its own run with the scores raised by 0-40, the
+    rest computed after them, against the plain version with the same
+    preset; at first = 0 for every call it is the call's own run."""
+    tb, params = chain_batch_from_numpy(_chain_preps(15, 48, 3000), cuda)
+    whole = C.chain_dp(tb, params)
+    lift = torch.from_numpy(np.random.default_rng(first).integers(0, 41, whole.shape[1])).to(cuda)
+    tb["first"] = torch.clamp(tb["n"], max=first).to(torch.int32)
+    preset = torch.full_like(whole, -777)
+    for o, n in zip(tb["off"].tolist(), tb["first"].tolist()):
+        sl = slice(o, o + n)
+        preset[0, sl] = whole[0, sl] + lift[sl].int()
+        preset[1, sl] = whole[1, sl]
+        preset[2, sl] = torch.maximum(whole[2, sl], preset[0, sl])
+    got = C.chain_dp(tb, params, out=preset.clone())
+    assert torch.equal(got, C.chain_dp_plain(tb, params, out=preset.clone()))
+    tb["first"] = torch.zeros_like(tb["first"])
+    assert torch.equal(C.chain_dp(tb, params, out=torch.full_like(whole, -777)), whole)
+
+
+@pytest.mark.cuda
 def test_chain_goldens_on_card(cuda, fixtures_dir):
     calls = json.load(open(fixtures_dir / "chain_golden.json"))
     inputs = [ChainCallInput(c["n"], c["avg_qspan"], c["max_dist_x"], c["max_dist_y"], c["bw"],

@@ -258,12 +258,46 @@ def test_chain_emulated_equals_plain_on_edge_calls(emulated, tmp_path):
              chip_smoke.chain_edge_calls(np.random.default_rng(0))[:-1]]
     tb, params = chain_batch_from_numpy(preps, "cpu")
     order = torch.argsort(tb["n"], descending=True, stable=True).to(torch.int32)
-    head = np.array([tb["x_lo"].numel(), tb["n"].numel(), *params], np.int64)
+    head = np.array([tb["x_lo"].numel(), tb["n"].numel(), *params, 0], np.int64)
     keys = ("x_lo", "qi", "qspan", "st_eff", "off", "n", "gap_table")
     got = _run(emulated["chain"], tmp_path, [head, *(tb[k].numpy() for k in keys), order.numpy()], 3)
     stats = {}
     assert torch.equal(got, C.chain_dp_plain(tb, params, stats=stats))
     assert stats["breaks"] > 0
+
+
+@pytest.mark.parametrize("first", [1, 40, 200])
+def test_chain_emulated_preset_head_equals_plain(emulated, tmp_path, first):
+    """The `first` entry (a call past a preset head, the sharded runtime's
+    halo): each edge call's rows [0, first) preset, the rest computed after
+    them, against the plain version with the same preset.  The preset is
+    the call's own run with scores raised by 0-40 and the peaks with them,
+    as a halo computed with more predecessors would differ, so the rows
+    after it differ from the call's own run.  first 1 and 40 preload the
+    register banks partly, 200 all three (96 predecessors)."""
+    preps = [C.prepare_call(x, y, q) for x, y, q in
+             chip_smoke.chain_edge_calls(np.random.default_rng(0))[:-1]]
+    tb, params = chain_batch_from_numpy(preps, "cpu")
+    whole = C.chain_dp_plain(tb, params)
+    tb["first"] = torch.clamp(tb["n"], max=first).to(torch.int32)
+    order = torch.argsort(tb["n"], descending=True, stable=True).to(torch.int32)
+    lift = torch.from_numpy(np.random.default_rng(first).integers(0, 41, whole.shape[1]))
+    preset = torch.full_like(whole, -777)
+    for o, n in zip(tb["off"].tolist(), tb["first"].tolist()):
+        sl = slice(o, o + n)
+        preset[0, sl] = whole[0, sl] + lift[sl].int()
+        preset[1, sl] = whole[1, sl]
+        preset[2, sl] = torch.maximum(whole[2, sl], preset[0, sl])
+    head = np.array([tb["x_lo"].numel(), tb["n"].numel(), *params, 1], np.int64)
+    keys = ("x_lo", "qi", "qspan", "st_eff", "off", "n", "gap_table")
+    got = _run(emulated["chain"], tmp_path, [head, *(tb[k].numpy() for k in keys), order.numpy(),
+                                             tb["first"].numpy(), preset.numpy()], 3)
+    want = C.chain_dp_plain(tb, params, out=preset.clone())
+    assert torch.equal(got, want)
+    head_rows = torch.cat([torch.arange(o, o + n) for o, n in
+                           zip(tb["off"].tolist(), tb["first"].tolist())])
+    assert torch.equal(want[:, head_rows], preset[:, head_rows])
+    assert not torch.equal(want, whole)
 
 
 PHMM_DTYPES = {"f32": (torch.float32, np.float32), "f64": (torch.float64, np.float64)}
