@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's PairHMM, bsw, chain, abea (read-coordinate and
 eventalign modes), fmi (device and host engines), kmer, poa, grm, basecall,
-call_var, dbg, pileup and fmi_build paths, its sharded runtime and its
-occ-gather, bsw roofline and chain roofline probes on one GPU and hold
-their kernels to their plain PyTorch versions.
+call_var, dbg, pileup and fmi_build paths, its sharded runtime, its
+occ-gather, bsw roofline and chain roofline probes and its counterparts of
+the JAX system's tools on one GPU and hold their kernels to their plain
+PyTorch versions.
 
     python3 chip_smoke.py [--seed 0] [--phases 4,8,12,17,19,24,26]
 
-Phases, run in the order 1, 2, 11, 12, 3-10, 16-26, 13-15 (any failure
+Phases, run in the order 1, 2, 11, 12, 3-10, 16-26, 13, 14, 27, 15 (any failure
 exits non-zero and prints no result; `--phases` runs a subset, with 1, 2
 and 15, and prints no kernels line).  The host phases of the main paths
 run the JAX package's native engines by default (native/*.cpp through
@@ -318,6 +319,20 @@ CTC beam (20) and the BAM decode (22).
      per rank, the equality), the kernels' launches per rank (each must
      launch); then one NCCL rank in this process (bsw, kmer, the fmi
      search);
+ 27. the JAX system's tools on the port (genomicsbench_palisade_tpu_torch/
+     tools/), after 14: `run_suite` in a process of its own (its inputs
+     under build/, the 14 benches each a `python -m ...cli.<mod>` process
+     on the card, 4 at a time, each held to the JAX tool's contract; every
+     bench must print OK, and its seconds are logged) and `bam_scale_bench`
+     in another (200,000 records on a 1.5 Mbp contig: the JAX tool's 8 M
+     on 60 Mbp cut alike, 40x), while `fuzz_parity` runs here for 20 s
+     from --seed (its 14 suites' random inputs through the kernels and
+     native engines against the oracles; each suite at least one round, no
+     failure); then `scaling_bench --devices 1,2` for phmm and kmer (rank
+     1 here, 2 spawned ranks sharing the card over gloo: no scaling
+     figure), `kmer_sharded_bench --smoke` on 2 ranks (equal to the native
+     host counter) and `grm_sweep` at its 32,768 x 2,048 (HIGH and
+     HIGHEST within 2e-5 of the float64 product); a `tools` line each;
  15. the abea chain cost: per abea cell the ns and SM cycles (at the
      median clock of phases 13-14) a band of the fill and a step of the
      walk, and the chain floors; each kernel's device seconds over one
@@ -330,8 +345,9 @@ abea signals (~118 MB, twice: phases 10 and 16), the fmi reads and
 index npz (~0.5 GB), the kmer reads (~255 MB), the poa windows, the grm
 .bed (~134 MB) and its outputs (~268 MB), the basecall signals (~118 MB),
 the clair tensors (~554 MB), the dbg BAM (~20 MB), the pileup BAM and
-text (~1 MB, ~110 MB) and the fmi-build FASTA and index (~0.5 GB) are
-written under build/ beside this script and deleted at the end.
+text (~1 MB, ~110 MB), the fmi-build FASTA and index (~0.5 GB) and the
+tools' inputs and BAM (~0.1 GB) are written under build/ beside this
+script and deleted at the end.
 """
 
 from __future__ import annotations
@@ -1746,6 +1762,10 @@ class Port:
         from genomicsbench_palisade_tpu_torch.tools import bsw_roofline as bsw_probe
         from genomicsbench_palisade_tpu_torch.tools import chain_roofline as chain_probe
         from genomicsbench_palisade_tpu_torch.tools import occ_gather_experiment as occ_tool
+        from genomicsbench_palisade_tpu_torch.tools import fuzz_parity as fuzz
+        from genomicsbench_palisade_tpu_torch.tools import grm_sweep
+        from genomicsbench_palisade_tpu_torch.tools import kmer_sharded_bench as kmer_sharded
+        from genomicsbench_palisade_tpu_torch.tools import scaling_bench as scaling
         from genomicsbench_palisade_tpu_torch.utils import build
         from genomicsbench_palisade_tpu_torch.parallel import dp, mesh
 
@@ -1771,7 +1791,8 @@ class Port:
                           cli_grm=cli_grm, G=G, plink=plink, cli_basecall=cli_basecall,
                           cli_call_var=cli_call_var, bonito=bonito, clair=clair,
                           cli_dbg=cli_dbg, cli_pileup=cli_pileup, cli_fmi_build=cli_fmi_build,
-                          native=native, D=D, PU=PU, native_build=native_build)
+                          native=native, D=D, PU=PU, native_build=native_build, fuzz=fuzz,
+                          grm_sweep=grm_sweep, kmer_sharded=kmer_sharded, scaling=scaling)
         self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend, chain_cuda.chain_dp,
                         *abea_cuda.KERNELS, *occ_gather.KERNELS, *bsw_stripped.KERNELS,
                         *chain_micro.KERNELS]
@@ -4861,6 +4882,136 @@ def chain_roofline_phase(torch, port: Port, rec: Record):
          "seconds": time.perf_counter() - t0}))
 
 
+# ---------------------------------------------------------------- phase 27: the tools
+
+TOOLS_PKG = "genomicsbench_palisade_tpu_torch.tools"
+SUITE_BENCHES = ("fmi_build", "fmi", "phmm", "bsw", "chain", "kmer-cnt", "poa", "abea",
+                 "abea-eventalign", "pileup", "dbg", "grm", "nn-base", "nn-variant")
+SUITE_JOBS = 4  # CLI processes at once: the phase checks contracts, not times
+SUITE_TIMEOUT_S = 600  # the whole suite (each bench: run_suite's own 120 s)
+FUZZ_SECONDS = 20
+SCALING_DEVICES = "1,2"
+SCALING_ITERS = 2
+KMER_SHARDED_RANKS = 2
+GRM_SWEEP_SIZE = (32768, 2048)  # variants x samples: the JAX tool's defaults
+BAM_RECORDS = 200_000  # of the JAX tool's 8,000,000: the phase's time
+BAM_REF_LEN = 1_500_000  # its 60 Mbp cut alike: 300-base reads at its 40x
+BAM_TIMEOUT_S = 300
+
+
+def tool_lines(main, argv) -> tuple:
+    """(return code, stdout lines, stderr text) of a tool's main(argv) run
+    in this process."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue().splitlines(), err.getvalue()
+
+
+def json_lines(lines) -> list:
+    return [json.loads(ln) for ln in lines if ln.startswith("{")]
+
+
+def finish(proc, timeout_s, what) -> tuple:
+    """(stdout, stderr) of a tool's process; kills it past timeout_s."""
+    try:
+        return proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{what} ran past {timeout_s} s")
+
+
+def tools_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 27: the JAX system's tools on the port.  The suite's 14 CLI
+    processes (SUITE_JOBS at once) and the BAM rehearsal run in processes
+    of their own while the fuzz runs in this one; then the scaling points,
+    the sharded kmer count and the GRM sweep, one after another."""
+    t_phase = time.perf_counter()
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        suite = subprocess.Popen(
+            [sys.executable, "-m", f"{TOOLS_PKG}.run_suite", "--workdir", str(tmp / "suite"),
+             "--jobs", str(SUITE_JOBS), "--device", DEVICE], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        bam = subprocess.Popen(
+            [sys.executable, "-m", f"{TOOLS_PKG}.bam_scale_bench", "--workdir", str(tmp / "bam"),
+             "--records", str(BAM_RECORDS), "--ref-len", str(BAM_REF_LEN)],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        t_fuzz = time.perf_counter()
+        counts, failures = port.fuzz.run(FUZZ_SECONDS, seed, torch.device(DEVICE))
+        fuzz_s = time.perf_counter() - t_fuzz
+        suite_out, suite_err = finish(suite, SUITE_TIMEOUT_S, "run_suite")
+        suite_s = time.perf_counter() - t0
+        bam_out, bam_err = finish(bam, BAM_TIMEOUT_S, "bam_scale_bench")
+        bam_s = time.perf_counter() - t0
+
+    log("tools fuzz " + json.dumps({"seconds": fuzz_s, "seed": seed, "rounds": counts,
+                                    "failures": failures, "card": rec.card}))
+    if failures or min(counts.values()) < 1:
+        fail(f"fuzz_parity: {failures or counts}")
+
+    lines = suite_out.splitlines()
+    ok = {ln.split()[1]: float(ln.split("(")[1].split()[0]) for ln in lines
+          if ln.startswith("OK   ")}
+    log("tools suite " + json.dumps({"rc": suite.returncode, "jobs": SUITE_JOBS,
+                                     "seconds_a_bench": ok, "wall_s": suite_s,
+                                     "card": rec.card}))
+    for ln in lines:
+        if not ln.startswith("OK   "):
+            log(f"  run_suite: {ln}")
+    if suite.returncode != 0 or sorted(ok) != sorted(SUITE_BENCHES):
+        fail(f"run_suite: rc {suite.returncode}, OK {sorted(ok)}; {suite_err[-2000:]}")
+
+    rows = json_lines(bam_out.splitlines())
+    if bam.returncode != 0 or len(rows) != 1:
+        fail(f"bam_scale_bench: rc {bam.returncode}; {bam_err[-2000:]}")
+    row = rows[0]
+    log("tools bam_scale_bench " + json.dumps({**row, "wall_s": bam_s, "ref_len": BAM_REF_LEN,
+                                               "host_cores": os.cpu_count()}))
+    if row["records"] != BAM_RECORDS or row["records_per_query"] <= 0 or row["pileup_cols"] <= 0:
+        fail(f"bam_scale_bench: {row}")
+
+    # the scaling points: rank 1 in this process, 2 spawned, sharing the card
+    for kernel in ("phmm", "kmer"):
+        t0 = time.perf_counter()
+        rc, lines, err = tool_lines(port.scaling.main, [
+            "--kernel", kernel, "--devices", SCALING_DEVICES, "--iters", str(SCALING_ITERS),
+            "--device", DEVICE])
+        rows = json_lines(lines)
+        notes = json_lines(err.splitlines())
+        log("tools scaling_bench " + json.dumps({"kernel": kernel, "points": rows[:-1],
+                                                 "summary": rows[-1], "notes": notes,
+                                                 "seconds": time.perf_counter() - t0,
+                                                 "card": rec.card}))
+        if rc != 0 or [r.get("devices") for r in rows[:-1]] != [1, 2] or not notes:
+            fail(f"scaling_bench --kernel {kernel}: rc {rc}, {rows}")
+
+    t0 = time.perf_counter()
+    rc, lines, err = tool_lines(port.kmer_sharded.main, [
+        "--smoke", "--devices", str(KMER_SHARDED_RANKS), "--device", DEVICE])
+    rows = json_lines(lines)
+    log("tools kmer_sharded_bench " + json.dumps({**(rows[-1] if rows else {}),
+                                                  "seconds": time.perf_counter() - t0}))
+    if rc != 0 or len(rows) != 1 or not rows[0]["metrics_equal"]:
+        fail(f"kmer_sharded_bench: rc {rc}; {err[-2000:]}")
+
+    t0 = time.perf_counter()
+    m, n = GRM_SWEEP_SIZE
+    rc, lines, _ = tool_lines(port.grm_sweep.main, ["--m", str(m), "--n", str(n),
+                                                    "--device", DEVICE])
+    rows = json_lines(lines)
+    log("tools grm_sweep " + json.dumps({"m": m, "n": n, "rows": rows,
+                                         "seconds": time.perf_counter() - t0,
+                                         "card": rec.card}))
+    exact = [r for r in rows if r["precision"] in ("HIGH", "HIGHEST")]
+    if rc != 0 or len(rows) != 16 or not all(r["meets_2e5"] for r in exact):
+        fail(f"grm_sweep: rc {rc}, {rows}")
+    log("tools phase " + json.dumps({"seconds": time.perf_counter() - t_phase}))
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -4938,7 +5089,8 @@ def main(argv=None) -> int:
                                ((22,), dbg_phase, std), ((23,), pileup_phase, std),
                                ((24,), fmi_build_phase, std), ((25,), native_engines_phase, (rec,)),
                                ((26,), sharded_phase, std), ((13,), bsw_roofline_phase, std),
-                               ((14,), chain_roofline_phase, (torch, port, rec))):
+                               ((14,), chain_roofline_phase, (torch, port, rec)),
+                               ((27,), tools_phase, std)):
         if wanted is not None and not wanted & set(numbers):
             continue
         t0 = time.perf_counter()

@@ -277,6 +277,40 @@ def write_bam(path, refs, records):
 # ---------------------------------------------------------------------------
 
 
+def bgzf_after_empty_blocks(path: str, coff_lo: int, coff_hi: int) -> list:
+    """The file offset just past each empty BGZF block (no data; the EOF
+    marker is one) that starts in [coff_lo, coff_hi), from the blocks'
+    headers.  bgzf_compress ends every call with one, so a file written in
+    runs (a header, then records a call at a time) holds one after each
+    run."""
+    out = []
+    with open(path, "rb") as f:
+        coff = coff_lo
+        while coff < coff_hi:
+            f.seek(coff)
+            head = f.read(12)
+            if len(head) < 12:
+                break
+            (xlen,) = struct.unpack_from("<H", head, 10)
+            extra = f.read(xlen)
+            bsize, e = 0, 0
+            while e + 4 <= len(extra):
+                (slen,) = struct.unpack_from("<H", extra, e + 2)
+                if extra[e : e + 2] == b"BC" and slen == 2:
+                    bsize = struct.unpack_from("<H", extra, e + 4)[0] + 1
+                e += 4 + slen
+            if not bsize:
+                break
+            f.seek(coff + bsize - 4)
+            isize = f.read(4)
+            if len(isize) < 4:
+                break
+            coff += bsize
+            if struct.unpack("<I", isize)[0] == 0:
+                out.append(coff)
+    return out
+
+
 class BgzfStream:
     """Streaming BGZF inflater with virtual-offset seek/tell.
 

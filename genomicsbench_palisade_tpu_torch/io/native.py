@@ -223,7 +223,22 @@ def read_bam_region_native(path: str, voff_lo: int, voff_hi: int, ref_id: int, b
     name_off/cigar_off/seq_off (int64[N+1] exclusive prefixes); names
     (bytes); cigar (uint32 raw words); seq_nt16, qual (uint8).  The
     streaming BGZF inflate keeps memory region-sized.  Raises when the
-    file cannot be read."""
+    file cannot be read.
+
+    native/bamio.cpp's region decode ends at the first empty BGZF block,
+    which it takes for the end of the file; a file written in runs has one
+    after each run (`io.bam.bgzf_after_empty_blocks`), and then the window
+    is decoded a segment at a time, each starting past such a block."""
+    from .bam import bgzf_after_empty_blocks
+
+    starts = [voff_lo] + [c << 16 for c in
+                          bgzf_after_empty_blocks(path, voff_lo >> 16, voff_hi >> 16)]
+    parts = [_region_segment(path, s, voff_hi, ref_id, beg, end, filter_flags, min_mapq)
+             for s in starts]
+    return parts[0] if len(parts) == 1 else _concat_cols(parts)
+
+
+def _region_segment(path, voff_lo, voff_hi, ref_id, beg, end, filter_flags, min_mapq) -> dict:
     lib = _lib()
     h = lib.gt_bam_open_region(os.fsencode(path), voff_lo, voff_hi, ref_id, beg, end,
                                filter_flags, min_mapq)
@@ -236,6 +251,18 @@ def read_bam_region_native(path: str, voff_lo: int, voff_hi: int, ref_id: int, b
     finally:
         lib.gt_bam_free(h)
     return cols
+
+
+def _concat_cols(parts) -> dict:
+    """One columnar dict of consecutive decodes' records, in order."""
+    out = {k: np.concatenate([p[k] for p in parts])
+           for k in ("ref_id", "pos", "mapq", "flag", "span", "cigar", "seq_nt16", "qual")}
+    for key, blob in (("name_off", "names"), ("cigar_off", "cigar"), ("seq_off", "seq_nt16")):
+        base = np.cumsum([0] + [len(p[blob]) for p in parts[:-1]])
+        out[key] = np.concatenate([p[key][:-1] + b for p, b in zip(parts, base)]
+                                  + [parts[-1][key][-1:] + base[-1]])
+    out["names"] = b"".join(p["names"] for p in parts)
+    return out
 
 
 def dbg_window_native(ref_seq: str, ref_start: int, reads, kmer_size: int, min_qual: int,

@@ -1,6 +1,7 @@
-"""Measurement tools of the port (run with `python -m`), and what the
-layout sweeps (`bsw_lanes`, `phmm_lanes`, `probe_lanes`) share: their
-builds, ptxas's usage and the fastest pick."""
+"""Measurement tools of the port (run with `python -m`), and what they
+share: timing on a card, the layout sweeps' (`bsw_lanes`, `phmm_lanes`,
+`probe_lanes`) builds, ptxas's usage and the fastest pick, and the ranks
+that the sharded tools (`scaling_bench`, `kmer_sharded_bench`) spawn."""
 
 from __future__ import annotations
 
@@ -159,3 +160,25 @@ def fastest(rows, key, pick) -> dict:
         if k not in best or row["ms"] < best[k]["ms"]:
             best[k] = row
     return {k: pick(r) for k, r in best.items()}
+
+
+def rank_device(device_type: str, rank: int) -> torch.device:
+    """A spawned rank's device: the CPU, or card rank mod the cards (ranks
+    past the cards share them)."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def shares_cards(device_type: str, n: int) -> bool:
+    """Whether n ranks on device_type share a card (more ranks than cards)."""
+    return device_type == "cuda" and n > torch.cuda.device_count()
+
+
+def spawn_ranks(fn, n: int, device_type: str, args=()):
+    """fn(rank, *args) in n spawned processes in one group on localhost:
+    NCCL when each rank has a card of its own, else gloo (the CPU, or ranks
+    that share a card); raises if a rank failed."""
+    from ..parallel import mesh
+
+    mesh.spawn(fn, n, args, backend=mesh.backend_for(device_type, n))

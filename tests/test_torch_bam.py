@@ -123,3 +123,64 @@ def test_bgzf_round_trip_equals_jax():
     packed = B.bgzf_compress(data)
     assert packed == JB.bgzf_compress(data)
     assert B.bgzf_decompress(packed) == data == JB.bgzf_decompress(packed)
+
+
+def _streamed_bam(path, n_chunks=3, per_chunk=400, read_len=120, ref_len=30_000, seed=8):
+    """A coordinate-sorted BAM written as tools/bam_scale_bench.py writes
+    one: the header and each run of records by its own bgzf_compress call,
+    so that an empty BGZF block follows the header and every run.  Returns
+    the records."""
+    import struct
+
+    rng = np.random.default_rng(seed)
+    pos = np.sort(rng.integers(0, ref_len - read_len, n_chunks * per_chunk))
+    name = b"c1\x00"
+    blocks = [B.bgzf_compress(b"BAM\x01" + struct.pack("<ii", 0, 1)
+                              + struct.pack("<i", len(name)) + name
+                              + struct.pack("<i", ref_len))]
+    recs = []
+    for c in range(n_chunks):
+        body = bytearray()
+        for i in range(c * per_chunk, (c + 1) * per_chunk):
+            seq = rng.integers(1, 16, read_len).astype(np.uint8)
+            qual = rng.integers(10, 40, read_len).astype(np.uint8)
+            qname = b"r%d\x00" % i
+            rec = struct.pack("<iiBBHHHiiii", 0, int(pos[i]), len(qname), 60, 0, 1, 16 * (i % 2),
+                              read_len, -1, -1, 0)
+            rec += (qname + struct.pack("<I", read_len << 4)
+                    + ((seq[0::2] << 4) | seq[1::2]).tobytes() + qual.tobytes())
+            body += struct.pack("<i", len(rec)) + rec
+            recs.append(B.BamRecord(f"r{i}", 16 * (i % 2), 0, int(pos[i]), 60,
+                                    [("M", read_len)], seq, qual, {}))
+        blocks.append(B.bgzf_compress(bytes(body)))
+    pathlib.Path(path).write_bytes(b"".join(blocks))
+    B.build_bai(str(path))
+    return recs
+
+
+def test_region_reads_cross_empty_bgzf_blocks(tmp_path):
+    """An empty BGZF block inside a region's .bai window (after the header,
+    between runs of records) does not end the native region decode:
+    read_bam_region's native default and the fused pileup equal the Python
+    decode, the JAX reader and the records that overlap each region (and
+    the whole-file native decode reads every record)."""
+    from genomicsbench_palisade_tpu_torch.ops import pileup as PU
+
+    bam = tmp_path / "streamed.bam"
+    recs = _streamed_bam(bam)
+    raw = bam.read_bytes()
+    assert raw.count(B.bgzf_compress(b"")[-28:]) == 4  # empty blocks: header, 3 runs
+    _same_records(B.read_bam(str(bam))[1], recs)
+    index = B.read_bai(str(bam) + ".bai")
+    for beg, end in [(0, 5_000), (0, 30_000), (7_000, 12_000), (9_000, 21_000),
+                     (29_000, 30_000)]:
+        want = [r for r in recs if r.pos < end and r.pos + 120 > beg]
+        got = B.read_bam_region(str(bam), "c1", beg, end, index=index)
+        _same_records(got[1], want)
+        _same_records(B.read_bam_region(str(bam), "c1", beg, end, index=index,
+                                        use_native=False)[1], want)
+        _same_records(JB.read_bam_region(str(bam), "c1", beg, end)[1], want)
+        fused = PU.calculate_pileup_region(str(bam), "c1", beg, end, index=index)
+        plain = PU.calculate_pileup(want, 0, beg, end)
+        for key in ("major", "minor", "matrix"):
+            np.testing.assert_array_equal(fused[key], plain[key], err_msg=key)
