@@ -8,7 +8,7 @@ PyTorch versions.
 
     python3 chip_smoke.py [--seed 0] [--phases 4,8,12,17,19,24,26]
 
-Phases, run in the order 1, 2, 11, 12, 3-10, 16-26, 13, 14, 27, 15 (any failure
+Phases, run in the order 1, 2, 11, 12, 3-10, 16-26, 13, 14, 27, 28, 15 (any failure
 exits non-zero and prints no result; `--phases` runs a subset, with 1, 2
 and 15, and prints no kernels line).  The host phases of the main paths
 run the JAX package's native engines by default (native/*.cpp through
@@ -303,8 +303,9 @@ CTC beam (20) and the BAM decode (22).
  26. the sharded runtime (parallel/), after 25: 2 gloo ranks spawned on the
      one card (NCCL refuses two ranks a device), each running every
      sharded path on its share of the earlier phases' data, against the
-     single-rank port run on the card: `cli.phmm` on dataset-550 (rank 0's
-     bytes equal the one-rank run's but the runtime line), bsw-bench-8192,
+     single-rank port run on the card: `cli.phmm` on dataset-550's first 55
+     batches (rank 0's bytes equal the one-rank run's but the runtime
+     line; all 550 took ~17 s a rank, a gather a batch), bsw-bench-8192,
      the halo over chain-1001's longest call (87,271 anchors) at w = w_need
      (equal to the main path's result) and at w = 64 (equal to the
      windowed single-device kernel), and over its head of max(6,000, 2 x
@@ -333,6 +334,21 @@ CTC beam (20) and the BAM decode (22).
      figure), `kmer_sharded_bench --smoke` on 2 ranks (equal to the native
      host counter) and `grm_sweep` at its 32,768 x 2,048 (HIGH and
      HIGHEST within 2e-5 of the float64 product); a `tools` line each;
+ 28. the JAX system's measurement harnesses on the port (tools/), after 27,
+     launch counts reset just before and read just after the tools run in
+     this process (the six kernels of phmm, bsw, chain and abea must each
+     launch): `genome_scale_fmi --mbp 16 --reads 512` (its reference and
+     index under build/, the host engine and the device pipeline, dumps
+     equal), then `fmi_pack_ab` on that index in a process of its own
+     (`--reads 512 --repeats 1`, host only: the three occ layouts, dumps
+     equal) while, here, five scale benches run on the card at their
+     `--smoke` sizes, then phmm_scale_bench at the smoke's 6 batches but
+     the dataset's shape and its full parity sample of 128 oracle cases,
+     whose host work overlaps `bench` at its JAX shapes in a process of its
+     own (the flagship phmm, h512 and bench_all's nine other benches;
+     bench_all's 64 Mbp index built, cached under build/ and deleted
+     after); a `tools28` line a tool; fails on a non-zero exit, an `error`
+     line, a parity key not true or a rate not above 0;
  15. the abea chain cost: per abea cell the ns and SM cycles (at the
      median clock of phases 13-14) a band of the fill and a step of the
      walk, and the chain floors; each kernel's device seconds over one
@@ -345,9 +361,10 @@ abea signals (~118 MB, twice: phases 10 and 16), the fmi reads and
 index npz (~0.5 GB), the kmer reads (~255 MB), the poa windows, the grm
 .bed (~134 MB) and its outputs (~268 MB), the basecall signals (~118 MB),
 the clair tensors (~554 MB), the dbg BAM (~20 MB), the pileup BAM and
-text (~1 MB, ~110 MB), the fmi-build FASTA and index (~0.5 GB) and the
-tools' inputs and BAM (~0.1 GB) are written under build/ beside this
-script and deleted at the end.
+text (~1 MB, ~110 MB), the fmi-build FASTA and index (~0.5 GB), the
+tools' inputs and BAM (~0.1 GB) and phase 28's 16 Mbp reference and index
+(~0.2 GB) and 64 Mbp bench index (~0.3 GB) are written under build/
+beside this script and deleted at the end.
 """
 
 from __future__ import annotations
@@ -356,6 +373,7 @@ import argparse
 import base64
 import contextlib
 import gc
+import importlib
 import io
 import json
 import math
@@ -372,6 +390,7 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
+TOOLS_PKG = "genomicsbench_palisade_tpu_torch.tools"
 DEVICE = "cuda"
 PROFILE_ATTEMPTS = 3  # traces of one run, when a trace shows no device event
 # f32 and f64 instruction rates of the H100 SXM outside the tensor cores:
@@ -398,6 +417,7 @@ BSW_SOURCE = "genomicsbench_palisade_tpu_torch/csrc/bsw_extend.cu"
 BSW_REPLACES = "genomicsbench_palisade_tpu/ops/bsw_pallas.py:35"
 BSW_PAIRS = 10_606_460  # the reference's bsw_large (scripts/bsw_large:8)
 BSW_SEED = 9  # tools/bsw_scale_bench.py's generator seed
+BSW_BENCH = (8192, 128, 256)  # tools/bench_all.py:bench_bsw's pairs, query, target
 BSW_CLI_PAIRS = 4096  # pairs of the file's head run through the CLI
 BSW_ORACLE_PAIRS = 512
 BSW_PLAIN_GROUP = 1 << 18  # pairs per call of the plain version in the whole-run check
@@ -579,6 +599,17 @@ def strip_chain_cycles(lanes: int, k: int) -> int:
     return 23 + 28 + 4 * k + 27 * (lanes.bit_length() - 1) + 23 + 4 * (k + 2)
 
 
+def tool(name: str):
+    """The port's tool module `name` (tools/), imported at its first use, so
+    that this script alone fails at its CUDA check and not at an import."""
+    return importlib.import_module(f"{TOOLS_PKG}.{name}")
+
+
+def bsw_bench_pairs():
+    """bsw-bench-8192's pairs: tools/bench_all.py:bench_bsw's, rng seed 1."""
+    return tool("bench_all").bsw_pairs(np.random.default_rng(1), *BSW_BENCH)
+
+
 def fail(msg: str):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -627,108 +658,7 @@ def same_events(a, b) -> bool:
         np.array_equal(a[k], b[k]) for k in ("start", "length", "mean", "stdv"))
 
 
-def synth_bench_cases(rng, b, rl, hl):
-    """bench.py:_synth_phmm_batch: reads are noisy (5%) substrings of their
-    hap, quals 36-59."""
-    reads, haps, pairs = [], [], []
-    for i in range(b):
-        hap = rng.integers(0, 4, hl)
-        start = rng.integers(0, hl - rl)
-        read = hap[start : start + rl].copy()
-        noise = rng.random(rl) < 0.05
-        read[noise] = rng.integers(0, 4, int(noise.sum()))
-        reads.append({"bases": read, "q": rng.integers(36, 60, rl),
-                      "i": rng.integers(36, 60, rl), "d": rng.integers(36, 60, rl),
-                      "c": rng.integers(36, 60, rl)})
-        haps.append(hap)
-        pairs.append((i, i))
-    return reads, haps, pairs
-
-
-def qual33(arr) -> str:
-    return "".join(chr(int(v) + 33) for v in arr)
-
-
-N_BATCHES = 550  # the reference benchmark's dataset
-
-
-def synth_testfile(path, rng, n_batches=N_BATCHES, max_reads=110, max_haps=37,
-                   read_len=(10, 151), hap_len=(50, 473)):
-    """The reference benchmark's dataset shape (the generator of
-    tools/phmm_scale_bench.py): reads 10-151 bp, haps 50-473 bp, 60% of
-    reads sampled from a hap with 3% mutations, q 6-40, i/d 30-45, c 10."""
-    with open(path, "w") as f:
-        for _ in range(n_batches):
-            nr = int(rng.integers(1, max_reads + 1))
-            nh = int(rng.integers(1, max_haps + 1))
-            f.write(f"{nr} {nh}\n")
-            haps = ["".join("ACGT"[c] for c in rng.integers(0, 4, int(rng.integers(
-                hap_len[0], hap_len[1] + 1)))) for _ in range(nh)]
-            for _ in range(nr):
-                rl = int(rng.integers(read_len[0], read_len[1] + 1))
-                if rng.random() < 0.6 and len(haps[0]) > rl:
-                    hp = haps[int(rng.integers(nh))]
-                    if len(hp) > rl:
-                        s = int(rng.integers(0, len(hp) - rl))
-                        bases = list(hp[s : s + rl])
-                        for p in np.nonzero(rng.random(rl) < 0.03)[0]:
-                            bases[p] = "ACGT"[int(rng.integers(4))]
-                        bases = "".join(bases)
-                    else:
-                        bases = hp
-                        rl = len(bases)
-                else:
-                    bases = "".join("ACGT"[c] for c in rng.integers(0, 4, rl))
-                f.write(f"{bases} {qual33(rng.integers(6, 41, rl))} "
-                        f"{qual33(rng.integers(30, 46, rl))} "
-                        f"{qual33(rng.integers(30, 46, rl))} {qual33(np.full(rl, 10))}\n")
-            for hp in haps:
-                f.write(hp + "\n")
-
-
-def write_pairs(path, n_pairs, rng, chunk=8192):
-    """The bsw pair file of tools/bsw_scale_bench.py:write_pairs, byte for
-    byte from the same rng: chunks of pairs that share (ql, tl), queries
-    96-151 copied from their target's head with 8% mutations, targets
-    192-256, h0 1-79; each chunk's records are laid out in one uint8
-    matrix (a 1-digit h0 drops its first column) instead of per record."""
-    with open(path, "wb") as f:
-        done = 0
-        while done < n_pairs:
-            m = min(chunk, n_pairs - done)
-            ql = int(rng.integers(96, 152))
-            tl = int(rng.integers(192, 257))
-            tgt = rng.integers(0, 4, (m, tl), dtype=np.uint8)
-            qry = tgt[:, :ql].copy()
-            mut = rng.random((m, ql)) < 0.08
-            qry[mut] = rng.integers(0, 4, int(mut.sum()), dtype=np.uint8)
-            h0 = rng.integers(1, 80, m)
-            head = np.frombuffer(b" %d %d\n" % (tl, ql), np.uint8)
-            rec = np.empty((m, 2 + len(head) + tl + 1 + ql + 1), np.uint8)
-            rec[:, 0] = 48 + h0 // 10
-            rec[:, 1] = 48 + h0 % 10
-            c = 2 + len(head)
-            rec[:, 2:c] = head
-            rec[:, c : c + tl] = tgt + 48
-            rec[:, c + tl] = 10
-            rec[:, c + tl + 1 : c + tl + 1 + ql] = qry + 48
-            rec[:, -1] = 10
-            keep = np.ones(rec.shape, bool)
-            keep[:, 0] = h0 >= 10
-            f.write(rec[keep].tobytes())
-            done += m
-
-
-def synth_call(rng, n):
-    """tools/chain_scale_bench.py:synth_call: x non-decreasing with gaps of
-    1-39 and a rare jump of 5,000-20,000, y within 400 of x (so y holds no
-    query span)."""
-    gaps = rng.integers(1, 40, n)
-    jumps = rng.random(n) < 0.002
-    gaps[jumps] += rng.integers(5_000, 20_000, int(jumps.sum()))
-    x = np.cumsum(gaps.astype(np.int64)) + 10_000
-    y = np.maximum(x + rng.integers(-400, 400, n), 0)
-    return x.astype(np.uint64), y.astype(np.uint64)
+N_BATCHES = 550  # the reference benchmark's dataset (phmm_scale_bench's default)
 
 
 def with_spans(y, spans_rng):
@@ -741,7 +671,9 @@ def write_dump(path, rng, n_calls, spans_rng=None):
     """The chain dataset of tools/chain_scale_bench.py:write_dump, byte for
     byte from the same rng when `spans_rng` is None: log-uniform call sizes
     from 63 anchors, one call of exactly CHAIN_MAX_N.  With `spans_rng` the
-    same anchors get query spans in y.  Returns the number of anchors."""
+    same anchors get query spans in y.  Returns the number of anchors.
+    (Kept beside the port tool's write_dump for the spans, which it has not.)"""
+    synth_call = tool("chain_scale_bench").synth_call
     sizes = np.round(10 ** rng.uniform(1.8, np.log10(CHAIN_MAX_N), n_calls)).astype(np.int64)
     sizes[rng.integers(0, n_calls)] = CHAIN_MAX_N
     with open(path, "w") as f:
@@ -787,19 +719,6 @@ def bsw_long_pairs(rng, n, q_lo, q_hi, t_hi=None):
             mut = rng.random(ql) < 0.08
             q[mut] = rng.integers(0, 4, int(mut.sum()))
         pairs.append((q.astype(np.int8), t.astype(np.int8), int(rng.integers(20, 60))))
-    return pairs
-
-
-def synth_bsw_bench_pairs(rng, b=8192, ql=128, tl=256):
-    """tools/bench_all.py:bench_bsw's batch: queries are the head of their
-    target with 8% mutations, h0 20-59."""
-    pairs = []
-    for _ in range(b):
-        t = rng.integers(0, 4, tl)
-        q = t[:ql].copy()
-        mut = rng.random(ql) < 0.08
-        q[mut] = rng.integers(0, 4, int(mut.sum()))
-        pairs.append((q, t, int(rng.integers(20, 60))))
     return pairs
 
 
@@ -948,29 +867,6 @@ def pack_y(qpos, span):
     return (np.asarray(span, np.uint64) << np.uint64(32)) | np.asarray(qpos, np.int64).astype(np.uint64)
 
 
-def synth_model(rng):
-    """tools/abea_scale_bench.py:synth_model: levels N(90, 12), stdv 1-3."""
-    model = {"level_mean": rng.normal(90, 12, 4096).astype(np.float32),
-             "level_stdv": (rng.random(4096) * 2 + 1).astype(np.float32)}
-    model["level_log_stdv"] = np.log(model["level_stdv"]).astype(np.float32)
-    return model
-
-
-def synth_read(rng, model, length):
-    """tools/abea_scale_bench.py:synth_read: a random read and its event
-    means, 1-2 events a k-mer at the model's level plus N(0, 0.4)."""
-    codes = rng.integers(0, 4, length)
-    seq = "".join("ACGT"[c] for c in codes)
-    nk = length - 6 + 1
-    ranks = np.zeros(nk, np.int64)
-    for j in range(6):
-        ranks = (ranks << 2) | codes[j : nk + j]
-    counts = rng.integers(1, 3, nk)
-    means = (np.repeat(model["level_mean"][ranks], counts)
-             + rng.normal(0, 0.4, int(counts.sum())))
-    return seq, means.astype(np.float32)
-
-
 def kmer_rank(kmer: str) -> int:
     """The rank of a 6-mer of ACGT: the first base is the high bits."""
     return int(sum("ACGT".index(ch) << (2 * (5 - j)) for j, ch in enumerate(kmer)))
@@ -1024,7 +920,7 @@ def abea_edge_reads(rng):
     a batch of more than one block at every size; the second batch is one
     read of 300 bases.  Most bands past the 50th of the short reads take
     the both-ends -inf parity rule."""
-    model = synth_model(rng)
+    model = tool("abea_scale_bench").synth_model(rng)
     acgt = np.array(list("ACGT"))
     seq_of = lambda n: "".join(acgt[rng.integers(0, 4, n)])  # noqa: E731
     reads = []  # (seq, events, scale, shift)
@@ -1321,26 +1217,6 @@ def write_genome_fasta(path: Path, n_bases: int, n_contigs: int, n_runs: int, rn
     return {"bases": per * n_contigs, "contigs": n_contigs, "ambiguous_runs_at_most": holes}
 
 
-def synth_reference_codes(mbp: int, rng) -> np.ndarray:
-    """tools/genome_scale_fmi.py:synth_reference's bases, as codes 0-3
-    (uint8): `mbp` million uniform bases drawn 4 Mi at a time from `rng`
-    (its FASTA holds these bases, 80 a line)."""
-    n = mbp * 1_000_000
-    chunk = 1 << 22
-    return np.concatenate([rng.integers(0, 4, min(chunk, n - s), dtype=np.int8)
-                           for s in range(0, n, chunk)]).astype(np.uint8)
-
-
-def synth_reads(codes, n_reads: int, read_len: int, rng) -> np.ndarray:
-    """tools/genome_scale_fmi.py:synth_reads: reads sampled from the forward
-    reference with 1% substitutions, int8 codes [n_reads, read_len]."""
-    starts = rng.integers(0, len(codes) - read_len, n_reads)
-    enc = np.stack([codes[s : s + read_len] for s in starts]).astype(np.int8)
-    sub = rng.random(enc.shape) < 0.01
-    enc[sub] = rng.integers(0, 4, int(sub.sum()), dtype=np.int8)
-    return enc
-
-
 def write_fastq(path, enc):
     """The reads as FASTQ records @r0, @r1, ... (quality I)."""
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -1352,7 +1228,9 @@ def write_fastq(path, enc):
 def synth_kmer_reads(rng, n_reads: int, read_len: int, genome_mbp: int, err: float):
     """tools/kmer_scale_bench.py's synth_reads, vectorised: reads [n, len]
     uint8 codes drawn from one uniform random genome, a substitution (a
-    random code, maybe the same) at each base with probability err."""
+    random code, maybe the same) at each base with probability err.  (Not
+    the tool's bytes: one binomial draw of the substitutions, not one a
+    read; its loop takes minutes at kmer-0.25g's 25,000 reads.)"""
     genome = rng.integers(0, 4, genome_mbp * 1_000_000, dtype=np.uint8)
     starts = rng.integers(0, len(genome) - read_len, n_reads)
     reads = np.empty((n_reads, read_len), np.uint8)
@@ -1373,27 +1251,11 @@ def write_fasta(path, rows, names=None):
             f.write(f">{names[i] if names else f'r{i}'}\n".encode() + seq + b"\n")
 
 
-def synth_windows(rng, n_win: int, n_seq: int, length: int):
-    """tools/poa_scale_bench.py's synth_windows: a random base sequence a
-    window, each of its sequences with 4% substitutions and 2 deletions."""
-    batches = []
-    for _ in range(n_win):
-        base = rng.integers(0, 4, length)
-        seqs = []
-        for _ in range(n_seq):
-            s = base.copy()
-            mut = rng.random(length) < 0.04
-            s[mut] = rng.integers(0, 4, int(mut.sum()))
-            s = np.delete(s, np.sort(rng.choice(length, 2, replace=False)))
-            seqs.append("".join("ACGT"[c] for c in s))
-        batches.append(seqs)
-    return batches
-
-
 def synth_genotypes(rng, m: int, n: int, rows: int = 4096) -> np.ndarray:
     """tools/bench_all.py:416's genotypes: [m, n] int8 dosage 0/1/2 at
     0.5/0.3/0.15 and 3 (missing) at 0.05, drawn as uniform thresholds a
-    block of rows at a time."""
+    block of rows at a time.  (Not the tool's bytes: its rng.choice over
+    537 M genotypes takes a float64 draw and a search each.)"""
     geno = np.empty((m, n), np.int8)
     for s in range(0, m, rows):
         u = rng.random((min(rows, m - s), n), dtype=np.float32)
@@ -1766,6 +1628,15 @@ class Port:
         from genomicsbench_palisade_tpu_torch.tools import grm_sweep
         from genomicsbench_palisade_tpu_torch.tools import kmer_sharded_bench as kmer_sharded
         from genomicsbench_palisade_tpu_torch.tools import scaling_bench as scaling
+        from genomicsbench_palisade_tpu_torch.tools import abea_scale_bench as abea_scale
+        from genomicsbench_palisade_tpu_torch.tools import bench
+        from genomicsbench_palisade_tpu_torch.tools import bench_all
+        from genomicsbench_palisade_tpu_torch.tools import bsw_scale_bench as bsw_scale
+        from genomicsbench_palisade_tpu_torch.tools import chain_scale_bench as chain_scale
+        from genomicsbench_palisade_tpu_torch.tools import genome_scale_fmi as genome_fmi
+        from genomicsbench_palisade_tpu_torch.tools import kmer_scale_bench as kmer_scale
+        from genomicsbench_palisade_tpu_torch.tools import phmm_scale_bench as phmm_scale
+        from genomicsbench_palisade_tpu_torch.tools import poa_scale_bench as poa_scale
         from genomicsbench_palisade_tpu_torch.utils import build
         from genomicsbench_palisade_tpu_torch.parallel import dp, mesh
 
@@ -1792,7 +1663,10 @@ class Port:
                           cli_call_var=cli_call_var, bonito=bonito, clair=clair,
                           cli_dbg=cli_dbg, cli_pileup=cli_pileup, cli_fmi_build=cli_fmi_build,
                           native=native, D=D, PU=PU, native_build=native_build, fuzz=fuzz,
-                          grm_sweep=grm_sweep, kmer_sharded=kmer_sharded, scaling=scaling)
+                          grm_sweep=grm_sweep, kmer_sharded=kmer_sharded, scaling=scaling,
+                          abea_scale=abea_scale, bench=bench, bench_all=bench_all,
+                          bsw_scale=bsw_scale, chain_scale=chain_scale, genome_fmi=genome_fmi,
+                          kmer_scale=kmer_scale, phmm_scale=phmm_scale, poa_scale=poa_scale)
         self.kernels = [*phmm_cuda.KERNELS.values(), bsw_cuda.bsw_extend, chain_cuda.chain_dp,
                         *abea_cuda.KERNELS, *occ_gather.KERNELS, *bsw_stripped.KERNELS,
                         *chain_micro.KERNELS]
@@ -1846,7 +1720,7 @@ def phmm_phases(torch, port: Port, rec: Record, seed: int):
     # 3. f32 kernel vs plain version at bench.py's shapes
     rng = np.random.default_rng(seed)
     for b, rl, hl, r_pad, h_pad in ((8192, 250, 302, 256, 320), (4096, 250, 473, 256, 512)):
-        reads, haps, pairs = synth_bench_cases(rng, b, rl, hl)
+        reads, haps, pairs = port.bench.phmm_cases(rng, b, rl, hl)
         batch_np = P.prepare_batch(reads, haps, pairs, r_pad=r_pad, h_pad=h_pad)
         ms, plain_ms, err = compare(torch, P, batch_np, torch.float32)
         bms, by = bound(batch_np, 4, F32_OPS_PER_S, n_tables)
@@ -1874,7 +1748,7 @@ def phmm_phases(torch, port: Port, rec: Record, seed: int):
     with tempfile.TemporaryDirectory() as tmp:
         tf = Path(tmp) / "testfile.txt"
         t0 = time.perf_counter()
-        synth_testfile(tf, np.random.default_rng(seed))
+        port.phmm_scale.synth_testfile(tf, np.random.default_rng(seed), n_batches=N_BATCHES)
         rec.shared["phmm_testfile"] = tf.read_bytes()
         log(f"testfile: {N_BATCHES} batches, {tf.stat().st_size / 1e6:.1f} MB, "
             f"written in {time.perf_counter() - t0:.1f} s")
@@ -2030,7 +1904,7 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
     name = kernel.name
 
     # 5. kernel vs plain version at tools/bench_all.py's shape
-    pairs = synth_bsw_bench_pairs(np.random.default_rng(1))
+    pairs = bsw_bench_pairs()
     tb, ptuple = port.bsw_batch_from_numpy(W.prepare_pairs(pairs, q_pad=128, t_pad=256), DEVICE)
     W.bsw_extend(tb, ptuple, q_max=128)  # warm-up: first launch
     ms, got = time_ms(torch, lambda: W.bsw_extend(tb, ptuple, q_max=128), 3)
@@ -2066,7 +1940,7 @@ def bsw_phases(torch, port: Port, rec: Record, seed: int):
     with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
         pf = Path(tmp) / "pairs.txt"
         t0 = time.perf_counter()
-        write_pairs(pf, BSW_PAIRS, np.random.default_rng(BSW_SEED))
+        port.bsw_scale.write_pairs(pf, BSW_PAIRS, np.random.default_rng(BSW_SEED))
         log(f"pairs file: {BSW_PAIRS} pairs, {pf.stat().st_size / 1e9:.3f} GB, "
             f"written in {time.perf_counter() - t0:.1f} s")
 
@@ -2342,7 +2216,7 @@ def chain_phases(torch, port: Port, rec: Record, seed: int):
     n_calls, n = CHAIN_BENCH
     raw = []
     for _ in range(n_calls):
-        x, y = synth_call(rng, n)
+        x, y = port.chain_scale.synth_call(rng, n)
         raw.append((x, y, float(rng.uniform(10, 40))))
     spans_rng = np.random.default_rng(seed)
     for label, ys in (("as generated", [y for _, y, _ in raw]),
@@ -2648,9 +2522,10 @@ def abea_phases(torch, port: Port, rec: Record, seed: int):
 
     # 9. kernels vs plain versions, 128 reads of 1-4 kb (tools/abea_scale_bench.py)
     rng = np.random.default_rng(ABEA_SEED)
-    model = synth_model(rng)
+    model = port.abea_scale.synth_model(rng)
     n_reads, lo_len, hi_len = ABEA_BENCH
-    reads = [synth_read(rng, model, n) for n in np.linspace(lo_len, hi_len, n_reads).astype(int)]
+    reads = [port.abea_scale.synth_read(rng, model, n)
+             for n in np.linspace(lo_len, hi_len, n_reads).astype(int)]
     batch_np, _ = A.prepare_batch([s for s, _ in reads], [e for _, e in reads], model,
                                   [1.0] * n_reads, [0.0] * n_reads)
     tb = port.abea_batch_from_numpy(batch_np, DEVICE)
@@ -2680,9 +2555,9 @@ def abea_phases(torch, port: Port, rec: Record, seed: int):
 
     # 9. the kernels alone on the long-read workload: 16 reads of 10-50 kb, one of 100 kb
     rng = np.random.default_rng(ABEA_SEED)
-    model = synth_model(rng)
+    model = port.abea_scale.synth_model(rng)
     n_long, lmin, lmax, l100 = ABEA_LONG
-    reads = [synth_read(rng, model, n) for n in
+    reads = [port.abea_scale.synth_read(rng, model, n) for n in
              [*np.linspace(lmin, lmax, n_long).astype(int).tolist(), l100]]
     batch_np, _ = A.prepare_batch([s for s, _ in reads], [e for _, e in reads], model,
                                   [1.0] * len(reads), [0.0] * len(reads))
@@ -3342,7 +3217,7 @@ def poa_phase(torch, port: Port, rec: Record, seed: int):
     cli, POA, PO = port.cli_poa, port.POA, port.poa_oracle
     (HERE / "build").mkdir(exist_ok=True)
     rng = np.random.default_rng(seed)
-    windows = synth_windows(rng, POA_WINDOWS, POA_SEQS, POA_LEN)
+    windows = port.poa_scale.synth_windows(rng, POA_WINDOWS, POA_SEQS, POA_LEN)
     with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
         fasta = Path(tmp) / "windows.fa"
         write_fasta(fasta, [s for w in windows for s in w],
@@ -3419,7 +3294,7 @@ def poa_phase(torch, port: Port, rec: Record, seed: int):
 
     # seeded small windows against the port's oracle, exactly
     n_win, n_seq, length = POA_ORACLE
-    small = synth_windows(rng, n_win, n_seq, length)
+    small = port.poa_scale.synth_windows(rng, n_win, n_seq, length)
     got = POA.msa_consensus_batch(small, POA_PARAMS, device=DEVICE)
     want = [PO.msa_consensus(w, PO.PoaParams(*POA_PARAMS)) for w in small]
     log(f"poa oracle sample: {sum(a == b for a, b in zip(got, want))}/{n_win} windows of "
@@ -3976,6 +3851,7 @@ def fmi_build_phase(torch, port: Port, rec: Record, seed: int):
 SHARD_RANKS = 2  # gloo ranks on the one card
 SHARD_DEVICE = "cuda:0"
 SHARD_KMER_READS = 6_400  # kmer-0.25g's first reads: 64 Mbp
+SHARD_PHMM_BATCHES = 55  # dataset-550's first batches: every bucket, a gather a batch
 SHARD_CHAIN_W = 64  # the windowed halo's w
 SHARD_CHAIN_HEAD = 6_000  # anchors of the longest call's head held to the oracle
 SHARD_FILE_READS = 256  # reads of fmi-build-16m's genome over its shard files
@@ -4040,7 +3916,7 @@ def sharded_rank(rank: int, tmp: str, seed: int, device: str):
     step("phmm", phmm)
 
     tb, ptuple = bsw_batch_from_numpy(
-        port_prepare_pairs(W, synth_bsw_bench_pairs(np.random.default_rng(1))), device)
+        port_prepare_pairs(W, bsw_bench_pairs()), device)
     step("bsw", lambda: dp.bsw_batch_sharded(mesh, tb, ptuple).cpu().numpy())
 
     z = np.load(tmp / "chain.npz")
@@ -4064,7 +3940,8 @@ def sharded_rank(rank: int, tmp: str, seed: int, device: str):
         mesh, geno, g["two_f"], g["inv_stdev"], g["ok"], block=512)))
 
     garr, seq_arr, seq_len, w_cap, a_cap = shard_poa_round(
-        POA, PO, synth_windows(np.random.default_rng(seed), POA_WINDOWS, POA_SEQS, POA_LEN))
+        POA, PO, tool("poa_scale_bench").synth_windows(np.random.default_rng(seed), POA_WINDOWS,
+                                                       POA_SEQS, POA_LEN))
     step("poa", lambda: dp.poa_align_sharded(mesh, seq_arr, seq_len, garr, POA_PARAMS, w_cap,
                                              a_cap))
 
@@ -4115,7 +3992,7 @@ def shard_chain_head(call) -> int:
 
 
 def port_prepare_pairs(W, pairs):
-    return W.prepare_pairs(pairs, q_pad=128, t_pad=256)
+    return W.prepare_pairs(pairs, q_pad=BSW_BENCH[1], t_pad=BSW_BENCH[2])
 
 
 def sharded_single(torch, port, tmp: Path, seed: int, data: dict) -> dict:
@@ -4128,7 +4005,7 @@ def sharded_single(torch, port, tmp: Path, seed: int, data: dict) -> dict:
         rc = port.cli.main(["-f", str(tmp / "phmm.txt"), "--device", DEVICE])
     ref["phmm"] = (rc, buf.getvalue())
     tb, ptuple = port.bsw_batch_from_numpy(
-        port_prepare_pairs(W, synth_bsw_bench_pairs(np.random.default_rng(1))), DEVICE)
+        port_prepare_pairs(W, bsw_bench_pairs()), DEVICE)
     ref["bsw"] = W.bsw_extend(tb, ptuple).cpu().numpy()
     ref["chain_w_need"] = data["chain"]["result"]
     z = np.load(tmp / "chain.npz")
@@ -4150,8 +4027,8 @@ def sharded_single(torch, port, tmp: Path, seed: int, data: dict) -> dict:
                                   for k in ("two_f", "inv_stdev", "ok")), 512)
     ref["grm"] = (sums.cpu().numpy(), counts.cpu().numpy())
     garr, seq_arr, seq_len, w_cap, a_cap = shard_poa_round(
-        POA, port.poa_oracle, synth_windows(np.random.default_rng(seed), POA_WINDOWS, POA_SEQS,
-                                            POA_LEN))
+        POA, port.poa_oracle, port.poa_scale.synth_windows(np.random.default_rng(seed),
+                                                           POA_WINDOWS, POA_SEQS, POA_LEN))
     from genomicsbench_palisade_tpu_torch.convert import poa_batch_from_numpy
 
     garrs = [{k: v[i] for k, v in garr.items()} for i in range(len(seq_len))]
@@ -4175,6 +4052,17 @@ def same_smems(a, b) -> bool:
     return smem_tuples(a[0]) == smem_tuples(b[0]) and tuple(a[1:]) == tuple(b[1:])
 
 
+def testfile_head(text: bytes, n_batches: int) -> bytes:
+    """The first n_batches batches of a phmm testfile (a batch: a line
+    "reads haps", then that many read lines and hap lines)."""
+    lines = text.split(b"\n")
+    i = 0
+    for _ in range(n_batches):
+        n_reads, n_haps = map(int, lines[i].split())
+        i += 1 + n_reads + n_haps
+    return b"\n".join(lines[:i]) + b"\n"
+
+
 def sharded_phase(torch, port: Port, rec: Record, seed: int):
     """Phase 26: the sharded runtime (parallel/) on SHARD_RANKS gloo ranks
     that share the card, on the data of the earlier phases, each path
@@ -4190,7 +4078,8 @@ def sharded_phase(torch, port: Port, rec: Record, seed: int):
     with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
         tmp = Path(tmp)
         t_set = time.perf_counter()
-        (tmp / "phmm.txt").write_bytes(data["phmm_testfile"])
+        (tmp / "phmm.txt").write_bytes(testfile_head(data["phmm_testfile"],
+                                                     SHARD_PHMM_BATCHES))
         c = data["chain"]["call"]
         np.savez(tmp / "chain.npz", x=c.x, y=c.y, avg_qspan=c.avg_qspan,
                  max_dist_x=c.max_dist_x, max_dist_y=c.max_dist_y, bw=c.bw)
@@ -4213,15 +4102,15 @@ def sharded_phase(torch, port: Port, rec: Record, seed: int):
         # fmi-build-16m's index as 2 shard files, and reads of its genome
         fb = data["fmi_build"]
         paths = port.fmi_index.save_npz_sharded(fb["index"], str(tmp / "idx16m"), SHARD_RANKS)
-        fenc = synth_reads(fb["codes"], SHARD_FILE_READS, FMI_READ_LEN,
-                           np.random.default_rng(seed + 26))
+        fenc = port.genome_fmi.sample_reads(fb["codes"], SHARD_FILE_READS, FMI_READ_LEN,
+                                            np.random.default_rng(seed + 26))
         frl = np.full(len(fenc), FMI_READ_LEN, np.int32)
         np.savez(tmp / "fmi16m_reads.npz", enc=fenc, rl=frl)
         # abea-bench-128's batch, made once for the ranks and the single run
         rng = np.random.default_rng(ABEA_SEED)
-        model = synth_model(rng)
+        model = port.abea_scale.synth_model(rng)
         n_reads, lo_len, hi_len = ABEA_BENCH
-        reads = [synth_read(rng, model, n)
+        reads = [port.abea_scale.synth_read(rng, model, n)
                  for n in np.linspace(lo_len, hi_len, n_reads).astype(int)]
         abatch, _ = port.A.prepare_batch([q for q, _ in reads], [e for _, e in reads], model,
                                          [1.0] * n_reads, [0.0] * n_reads)
@@ -4303,7 +4192,7 @@ def sharded_phase(torch, port: Port, rec: Record, seed: int):
         try:
             mesh = M.make_mesh(1, device="cuda:0")
             tb, ptuple = port.bsw_batch_from_numpy(
-                port_prepare_pairs(port.W, synth_bsw_bench_pairs(np.random.default_rng(1))),
+                port_prepare_pairs(port.W, bsw_bench_pairs()),
                 DEVICE)
             codes = data["kmer_codes"][:1024]
             k_got = port.dp.count_kmers_sharded(
@@ -4473,8 +4362,9 @@ def fmi_phase(torch, port: Port, rec: Record, seed: int):
     cli_fmi, FP, G = port.cli_fmi, port.fmi_pipeline, port.occ_gather
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    codes = synth_reference_codes(FMI_MBP, np.random.default_rng(seed))
-    enc_np = synth_reads(codes, FMI_READS, FMI_READ_LEN, np.random.default_rng(seed + 1))
+    codes = port.genome_fmi.reference_codes(FMI_MBP, np.random.default_rng(seed))
+    enc_np = port.genome_fmi.sample_reads(codes, FMI_READS, FMI_READ_LEN,
+                                          np.random.default_rng(seed + 1))
     gen_s = time.perf_counter() - t0
 
     # set-up: the index, built on the card
@@ -4884,7 +4774,6 @@ def chain_roofline_phase(torch, port: Port, rec: Record):
 
 # ---------------------------------------------------------------- phase 27: the tools
 
-TOOLS_PKG = "genomicsbench_palisade_tpu_torch.tools"
 SUITE_BENCHES = ("fmi_build", "fmi", "phmm", "bsw", "chain", "kmer-cnt", "poa", "abea",
                  "abea-eventalign", "pileup", "dbg", "grm", "nn-base", "nn-variant")
 SUITE_JOBS = 4  # CLI processes at once: the phase checks contracts, not times
@@ -5012,6 +4901,136 @@ def tools_phase(torch, port: Port, rec: Record, seed: int):
     log("tools phase " + json.dumps({"seconds": time.perf_counter() - t_phase}))
 
 
+# ---------------------------------------------------------------- phase 28: the scale tools
+
+# the scale benches at their --smoke sizes, on the card; phmm at the smoke's
+# 6 batches of the dataset's shape with the full parity sample of 128
+# (--smoke would cut the sample to 16)
+SCALE_RUNS = (("bsw_scale_bench", ["--smoke"]), ("chain_scale_bench", ["--smoke"]),
+              ("abea_scale_bench", ["--smoke"]), ("kmer_scale_bench", ["--smoke"]),
+              ("poa_scale_bench", ["--smoke"]))
+PHMM_TOOL_ARGS = ["--batches", "6"]
+GENOME_FMI_ARGS = ["--mbp", "16", "--reads", "512"]
+PACK_AB_ARGS = ["--reads", "512", "--repeats", "1"]
+PACK_AB_TIMEOUT_S = 300
+BENCH_TIMEOUT_S = 300
+TOOLS28_KERNELS = ("phmm_forward_f32", "phmm_forward_f64", "bsw_extend", "chain_dp",
+                   "abea_fill", "abea_walk")
+# each tool's rates (all must be above 0) and parity keys (all must be true)
+TOOL_RATES = {"phmm_scale_bench": ("gcups_end_to_end",), "bsw_scale_bench": ("pairs_per_s",),
+              "chain_scale_bench": ("anchors_per_s",), "abea_scale_bench": ("events_per_s",),
+              "kmer_scale_bench": ("device_mbases_per_s", "host_mbases_per_s"),
+              "poa_scale_bench": ("seqs_per_s",),
+              "genome_scale_fmi": ("host_reads_per_s", "tpu_reads_per_s"),
+              "fmi_pack_ab": ("reads_per_s",)}
+TOOL_PARITY = {"kmer_scale_bench": ("host_device_metrics_equal",),
+               "genome_scale_fmi": ("dump_parity", "totals_match"),
+               "fmi_pack_ab": ("dump_parity",), "chain": ("mixed_batch_ok",)}
+
+
+def tool_run(name, argv) -> tuple:
+    """(the JSON lines of the port tool `name`'s main(argv) run here, its
+    stderr, seconds); fails unless it returns 0."""
+    t0 = time.perf_counter()
+    try:
+        rc, lines, err = tool_lines(tool(name).main, argv)
+    except Exception as e:  # a parity assertion, or a kernel that raised
+        fail(f"{name} {' '.join(argv)}: {e!r}")
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{name} {' '.join(argv)}: rc {rc}; {lines[-4:]}; {err[-2000:]}")
+    return json_lines(lines), err, secs
+
+
+def tool_logged(name, argv, card):
+    """tool_run of a tool that prints one line; logs and checks the line."""
+    (row,), _, secs = tool_run(name, argv)
+    log(f"tools28 {name} " + json.dumps({**row, "seconds": secs, "card": card}))
+    check_row(name, row)
+
+
+def check_row(name, row):
+    """Fail on an error line, a parity key not true or a rate not above 0."""
+    bad = ["error"] if "error" in row else []
+    bad += [k for k in TOOL_PARITY.get(name, ()) if row.get(k) is not True]
+    bad += [k for k in TOOL_RATES.get(name, ("value",)) if not row.get(k, 0) > 0]
+    if bad:
+        fail(f"{name}: {bad} in {row}")
+
+
+def scale_tools_phase(torch, port: Port, rec: Record, seed: int):
+    """Phase 28: the JAX system's measurement harnesses on the port, each
+    through its main.  Here, launch counts reset just before and read just
+    after: genome_scale_fmi (16 Mbp, 512 reads) under build/, the five small
+    scale benches, then phmm_scale_bench, whose 128 oracle cases keep the
+    host busy while `bench` (with bench_all's benches) runs on the card in a
+    process of its own; fmi_pack_ab (host only) runs in a third on
+    genome_scale_fmi's index."""
+    t_phase = time.perf_counter()
+    (HERE / "build").mkdir(exist_ok=True)
+    cache = Path(port.bench_all.CACHE_DIR)
+    fresh = not list(cache.glob("bench_fmi_idx*.npz*"))
+    port.reset_launches()
+    procs = []  # killed if this phase fails before it has waited for them
+
+    def start(module, *argv):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", f"{TOOLS_PKG}.{module}", *argv], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        return procs[-1]
+
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = Path(tmp)
+        try:
+            tool_logged("genome_scale_fmi", GENOME_FMI_ARGS + [
+                "--workdir", str(tmp / "fmi"), "--device", DEVICE], rec.card)
+            t_ab = time.perf_counter()
+            pack_ab = start("fmi_pack_ab", "--workdir", str(tmp / "fmi"), *PACK_AB_ARGS)
+            for name, argv in SCALE_RUNS:
+                tool_logged(name, argv + ["--device", DEVICE], rec.card)
+            t_bench = time.perf_counter()
+            bench = start("bench", "--device", DEVICE)
+            tool_logged("phmm_scale_bench", PHMM_TOOL_ARGS + ["--device", DEVICE], rec.card)
+            launches = port.launches()
+            bench_out, bench_err = finish(bench, BENCH_TIMEOUT_S, "bench")
+            bench_s = time.perf_counter() - t_bench
+            ab_out, ab_err = finish(pack_ab, PACK_AB_TIMEOUT_S, "fmi_pack_ab")
+            ab_s = time.perf_counter() - t_ab
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+    rows = json_lines(bench_out.splitlines())
+    log("tools28 bench " + json.dumps({"rc": bench.returncode, "lines": rows,
+                                       "notes": json_lines(bench_err.splitlines()),
+                                       "wall_s": bench_s, "bench_fmi_idx64_fresh": fresh,
+                                       "card": rec.card}))
+    if bench.returncode != 0 or len(rows) != 10:
+        fail(f"bench: rc {bench.returncode}; {bench_err[-2000:]}")
+    *benches, last = rows
+    for row in benches:
+        check_row(row["kernel"], row)
+    if not (last["value"] > 0 and isinstance(last["h512_gcups"], float)
+            and last["h512_gcups"] > 0 and len(last["per_kernel"]) == 9):
+        fail(f"bench: {last}")
+    ab_rows = json_lines(ab_out.splitlines())
+    log("tools28 fmi_pack_ab " + json.dumps({"rc": pack_ab.returncode, "lines": ab_rows,
+                                             "wall_s": ab_s, "host_cores": os.cpu_count()}))
+    if pack_ab.returncode != 0 or len(ab_rows) != 3:
+        fail(f"fmi_pack_ab: rc {pack_ab.returncode}; {ab_err[-2000:]}")
+    for row in ab_rows:
+        check_row("fmi_pack_ab", row)
+    for f in cache.glob("bench_fmi_idx*.npz*"):  # bench_all's cached index and its rows
+        f.unlink()
+    log("tools28 launches " + json.dumps({k: launches[k] for k in TOOLS28_KERNELS}))
+    missing = [k for k in TOOLS28_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"phase 28 launched no {missing}")
+    log("tools28 phase " + json.dumps({"seconds": time.perf_counter() - t_phase}))
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -5090,7 +5109,7 @@ def main(argv=None) -> int:
                                ((24,), fmi_build_phase, std), ((25,), native_engines_phase, (rec,)),
                                ((26,), sharded_phase, std), ((13,), bsw_roofline_phase, std),
                                ((14,), chain_roofline_phase, (torch, port, rec)),
-                               ((27,), tools_phase, std)):
+                               ((27,), tools_phase, std), ((28,), scale_tools_phase, std)):
         if wanted is not None and not wanted & set(numbers):
             continue
         t0 = time.perf_counter()

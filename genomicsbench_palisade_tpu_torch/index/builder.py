@@ -213,15 +213,18 @@ def write_bwt2bit64(idx: DeviceFmIndex, path: str):
         np.int64(idx.sentinel_index).tofile(f)
 
 
-def save_npz_full(idx: DeviceFmIndex, path: str, names=None, lengths=None):
+def save_npz_full(idx: DeviceFmIndex, path: str, names=None, lengths=None,
+                  compress: bool = True):
     """The npz index with its SA arrays (and the contigs' names and lengths
-    when given), the JAX builder's members, dtypes and order."""
+    when given), the JAX builder's members, dtypes and order.
+    `compress=False` stores the members as they are (a cache: the
+    compression is most of the write's time)."""
     extra = {}
     if names is not None:
         extra["contig_names"] = np.asarray(names, dtype=object)
         extra["contig_lengths"] = np.asarray(lengths, np.int64)
     hi, lo = split_one_hot(idx.cp_occ)
-    np.savez_compressed(
+    (np.savez_compressed if compress else np.savez)(
         path,
         ref_seq_len=idx.ref_seq_len,
         count=idx.count,

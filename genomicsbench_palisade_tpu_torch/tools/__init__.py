@@ -1,15 +1,20 @@
 """Measurement tools of the port (run with `python -m`), and what they
 share: timing on a card, the layout sweeps' (`bsw_lanes`, `phmm_lanes`,
-`probe_lanes`) builds, ptxas's usage and the fastest pick, and the ranks
-that the sharded tools (`scaling_bench`, `kmer_sharded_bench`) spawn."""
+`probe_lanes`) builds, ptxas's usage and the fastest pick, the ranks
+that the sharded tools (`scaling_bench`, `kmer_sharded_bench`) spawn, and
+the scale benches' working directory and history files."""
 
 from __future__ import annotations
 
+import contextlib
+import json
 import re
 import subprocess
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -182,3 +187,28 @@ def spawn_ranks(fn, n: int, device_type: str, args=()):
     from ..parallel import mesh
 
     mesh.spawn(fn, n, args, backend=mesh.backend_for(device_type, n))
+
+
+@contextlib.contextmanager
+def work_dir(path=None):
+    """The directory a tool keeps its inputs in: `path` (made if missing;
+    what is there is kept and reused) when given, else a temporary
+    directory, removed at the end."""
+    if path:
+        wd = Path(path)
+        wd.mkdir(parents=True, exist_ok=True)
+        yield wd
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            yield Path(tmp)
+
+
+def append_entry(path, entry):
+    """Append `entry` to the JSON list in the file `path` (made if missing),
+    as the JAX tools keep their *_SCALE.json histories."""
+    p = Path(path)
+    hist = json.loads(p.read_text()) if p.exists() else []
+    if isinstance(hist, dict):
+        hist = [hist]
+    hist.append(entry)
+    p.write_text(json.dumps(hist, indent=1))

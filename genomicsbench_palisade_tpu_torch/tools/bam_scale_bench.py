@@ -32,13 +32,13 @@ import pathlib
 import resource
 import struct
 import sys
-import tempfile
 import time
 
 import numpy as np
 
 from ..io.bam import bgzf_compress, build_bai, read_bai, read_bam_region
 from ..ops.pileup import calculate_pileup, calculate_pileup_region
+from . import append_entry, work_dir
 
 CONTIG = "chr20"
 
@@ -161,20 +161,10 @@ def main(argv=None):
                     help="append the whole-contig line to this file's list")
     args = ap.parse_args(argv)
 
-    if args.workdir:
-        wd = pathlib.Path(args.workdir)
-        wd.mkdir(parents=True, exist_ok=True)
+    with work_dir(args.workdir) as wd:
         entry = rehearse(wd, args)
-    else:
-        with tempfile.TemporaryDirectory() as tmp:
-            entry = rehearse(pathlib.Path(tmp), args)
     if entry is not None and args.out:
-        p = pathlib.Path(args.out)
-        hist = json.loads(p.read_text()) if p.exists() else []
-        if isinstance(hist, dict):
-            hist = [hist]
-        hist.append(entry)
-        p.write_text(json.dumps(hist, indent=1))
+        append_entry(args.out, entry)
     return 0
 
 

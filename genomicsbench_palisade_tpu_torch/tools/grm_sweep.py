@@ -19,14 +19,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import pathlib
 
 import numpy as np
 import torch
 
 from .. import default_device
 from ..ops import grm as G
-from . import time_calls
+from . import append_entry, time_calls
 
 BLOCKS = (1024, 2048, 4096, 8192)
 MODES = (("DEFAULT", "DEFAULT"), ("COMPENSATED", "compensated"), ("HIGH", "HIGH"),
@@ -92,10 +91,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     rows = sweep(genotypes(args.m, args.n), default_device(args.device), args.reps, args.iters)
     if args.out:
-        p = pathlib.Path(args.out)
-        hist = json.loads(p.read_text()) if p.exists() else []
-        hist.append({"tool": "grm_sweep", "m": args.m, "n": args.n, "rows": rows})
-        p.write_text(json.dumps(hist, indent=1))
+        append_entry(args.out, {"tool": "grm_sweep", "m": args.m, "n": args.n, "rows": rows})
     return 0
 
 

@@ -31,7 +31,7 @@ import time
 
 import numpy as np
 
-from . import rank_device, spawn_ranks
+from . import append_entry, rank_device, spawn_ranks
 
 SEED = 20260826
 
@@ -142,10 +142,7 @@ def main(argv=None):
     }
     print(json.dumps(res))
     if args.out:
-        p = pathlib.Path(args.out)
-        hist = json.loads(p.read_text()) if p.exists() else []
-        hist.append(res)
-        p.write_text(json.dumps(hist, indent=1))
+        append_entry(args.out, res)
     return 0
 
 

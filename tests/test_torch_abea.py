@@ -455,7 +455,8 @@ def test_convert_carries_jax_model_and_batch(tmp_path, model):
 def test_chip_smoke_abea_generator_aligns(tmp_path, monkeypatch):
     """chip_smoke.py's abea-512 generator, cut to 4 short reads, writes a
     FASTA and signals that the port's CLI aligns; its bench reads are
-    tools/abea_scale_bench.py's synth_read (same rng draws)."""
+    tools/abea_scale_bench.py's synth_read (same rng draws), which it takes
+    from the port's tool."""
     monkeypatch.syspath_prepend(str(REPO / "tools"))
     monkeypatch.syspath_prepend(str(REPO))
     import abea_scale_bench
@@ -474,10 +475,11 @@ def test_chip_smoke_abea_generator_aligns(tmp_path, monkeypatch):
                               prep.shifts[0])
     a = np.random.default_rng(17)
     b = np.random.default_rng(17)
-    ma, mb = chip_smoke.synth_model(a), abea_scale_bench.synth_model(b)
+    port = chip_smoke.tool("abea_scale_bench")
+    ma, mb = port.synth_model(a), abea_scale_bench.synth_model(b)
     assert all(np.array_equal(ma[k], mb[k]) for k in ma)
     for n in (500, 1200):
-        sa, ea = chip_smoke.synth_read(a, ma, n)
+        sa, ea = port.synth_read(a, ma, n)
         sb, eb = abea_scale_bench.synth_read(b, mb, n)
         assert sa == sb and np.array_equal(ea, eb)
 

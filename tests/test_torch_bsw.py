@@ -254,16 +254,17 @@ def test_convert_carries_jax_prepare_pairs():
 
 
 def test_chip_smoke_pair_file_matches_tools_generator(tmp_path, monkeypatch):
-    """chip_smoke.py writes the bsw_large file of tools/bsw_scale_bench.py
-    byte for byte (same rng draws), with the records laid out in bulk."""
+    """chip_smoke.py writes bsw_large with the port tool's write_pairs: the
+    file of tools/bsw_scale_bench.py byte for byte (same rng draws), with
+    the records laid out in bulk."""
     monkeypatch.syspath_prepend(str(REPO / "tools"))
-    monkeypatch.syspath_prepend(str(REPO))
     import bsw_scale_bench
-    import chip_smoke
+
+    from genomicsbench_palisade_tpu_torch.tools.bsw_scale_bench import write_pairs
 
     for n, chunk in ((2500, 1000), (700, 8192)):
         a, b = tmp_path / "a.txt", tmp_path / "b.txt"
-        chip_smoke.write_pairs(a, n, np.random.default_rng(9), chunk=chunk)
+        write_pairs(a, n, np.random.default_rng(9), chunk=chunk)
         bsw_scale_bench.write_pairs(b, n, np.random.default_rng(9), chunk=chunk)
         assert a.read_bytes() == b.read_bytes()
     soa = PIO.parse_pairs_soa(a)

@@ -511,9 +511,9 @@ def test_host_packs_equal_jax_packs_word_for_word():
 
 
 def test_chip_smoke_fmi_generators(tmp_path, monkeypatch):
-    """chip_smoke.py's reference and reads are tools/genome_scale_fmi.py's
-    synth_reference and synth_reads (same rng draws), and its FASTQ holds
-    those reads."""
+    """chip_smoke.py's reference and reads (the port tool's reference_codes
+    and sample_reads) are tools/genome_scale_fmi.py's synth_reference and
+    synth_reads (same rng draws), and its FASTQ holds those reads."""
     monkeypatch.syspath_prepend(str(REPO / "tools"))
     monkeypatch.syspath_prepend(str(REPO))
     import chip_smoke
@@ -521,11 +521,12 @@ def test_chip_smoke_fmi_generators(tmp_path, monkeypatch):
 
     fa = tmp_path / "ref.fa"
     genome_scale_fmi.synth_reference(fa, 1, seed=5)
-    codes = chip_smoke.synth_reference_codes(1, np.random.default_rng(5))
+    port = chip_smoke.tool("genome_scale_fmi")
+    codes = port.reference_codes(1, np.random.default_rng(5))
     np.testing.assert_array_equal(codes, JB.pack_fasta(str(fa))[0])
     np.testing.assert_array_equal(codes, IB.pack_fasta(str(fa))[0])
     want = genome_scale_fmi.synth_reads(fa, 40, 151, seed=6)
-    enc = chip_smoke.synth_reads(codes, 40, 151, np.random.default_rng(6))
+    enc = port.sample_reads(codes, 40, 151, np.random.default_rng(6))
     np.testing.assert_array_equal(enc, want)
     fq = tmp_path / "r.fq"
     chip_smoke.write_fastq(fq, enc)

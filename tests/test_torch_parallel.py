@@ -623,8 +623,9 @@ def test_phmm_cli_on_two_ranks_prints_one_ranks_bytes(tmp_path):
     from genomicsbench_palisade_tpu_torch.cli import phmm as cli
 
     tf = tmp_path / "t.txt"
-    chip_smoke.synth_testfile(tf, np.random.default_rng(3), n_batches=2, max_reads=10,
-                              max_haps=3, read_len=(100, 151), hap_len=(50, 160))
+    chip_smoke.tool("phmm_scale_bench").synth_testfile(
+        tf, np.random.default_rng(3), n_batches=2, max_reads=10, max_haps=3,
+        read_len=(100, 151), hap_len=(50, 160))
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         assert cli.main(["-f", str(tf), "--device", "cpu"]) == 0
@@ -674,8 +675,9 @@ def test_phmm_cli_under_torchrun_env_on_the_cpu_uses_gloo(tmp_path):
     from genomicsbench_palisade_tpu_torch.cli import phmm as cli
 
     tf = tmp_path / "t.txt"
-    chip_smoke.synth_testfile(tf, np.random.default_rng(4), n_batches=1, max_reads=6,
-                              max_haps=3, read_len=(60, 100), hap_len=(50, 120))
+    chip_smoke.tool("phmm_scale_bench").synth_testfile(
+        tf, np.random.default_rng(4), n_batches=1, max_reads=6, max_haps=3,
+        read_len=(60, 100), hap_len=(50, 120))
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         assert cli.main(["-f", str(tf), "--device", "cpu"]) == 0

@@ -247,7 +247,10 @@ for n in ("cli.fmi", "ops.fmi", "ops.fmi_pipeline", "ops.occ_gather", "ops.oracl
           "tools.bsw_idle_timing", "tools.probe_lanes", "io.plink", "ops.grm", "cli.grm",
           "models.bonito", "models.clair", "io.flax_msgpack", "cli.basecall", "cli.call_var",
           "utils.precision", "io.native", "utils.native_build", "utils.timing", "ops.dbg",
-          "ops.pileup", "cli.dbg", "cli.pileup", "cli.fmi_build"):
+          "ops.pileup", "cli.dbg", "cli.pileup", "cli.fmi_build", "tools.bench",
+          "tools.bench_all", "tools.phmm_scale_bench", "tools.bsw_scale_bench",
+          "tools.chain_scale_bench", "tools.abea_scale_bench", "tools.kmer_scale_bench",
+          "tools.poa_scale_bench", "tools.genome_scale_fmi", "tools.fmi_pack_ab"):
     assert "genomicsbench_palisade_tpu_torch." + n in names, n
 print("ok", len(names))
 """
